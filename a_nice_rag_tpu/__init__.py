@@ -1,9 +1,9 @@
-"""a_nice_rag_tpu — a TPU-native retrieval-augmented-generation framework.
+"""a_nice_rag_tpu — a retrieval-augmented-generation framework in JAX.
 
 Re-design of the capabilities of the A-NICE-RAG reference system
-(retrieval over NICE clinical guidelines) for TPU hardware:
+(retrieval over NICE clinical guidelines) for accelerators:
 
-* the SQLite vector store / pickled BM25 index become a single HBM-resident
+* the SQLite vector store / pickled BM25 index become a single device-resident
   :class:`~a_nice_rag_tpu.index.ArrayIndex` (dense embedding matrix + CSR
   "eager impact" BM25 arrays),
 * cosine top-k, BM25 Okapi scoring and weighted reciprocal-rank fusion run

@@ -3,7 +3,7 @@
 Mirrors the knob surface of the reference (``src/config.py:7-59``): the
 ``InfoSource`` enum, per-source artifact paths, default fusion weights, and
 the context/not-found strings used by the RAG prompt. Extends it with
-TPU-specific settings (dtype policy, padding, sharding axes).
+device execution settings (dtype policy, padding, sharding axes).
 """
 
 from __future__ import annotations
@@ -45,15 +45,14 @@ class SourceConfig:
 
 
 @dataclasses.dataclass
-class TpuConfig:
-    """TPU execution policy.
+class DeviceConfig:
+    """Device execution policy.
 
     * ``score_dtype``: dtype of the dense scoring matmul accumulator.
-    * ``emb_dtype``: storage dtype of the HBM-resident embedding matrix.
-      float32 keeps exact ranking parity with the NumPy reference;
-      bfloat16 halves HBM traffic for large corpora (MXU-native).
-    * ``doc_pad``: document-axis padding multiple. 128 keeps the lane
-      dimension of score tiles aligned to the VPU/MXU.
+    * ``emb_dtype``: storage dtype of the device-resident embedding
+      matrix. float32 keeps exact ranking parity with the NumPy
+      reference; bfloat16 halves device-memory traffic for large corpora.
+    * ``doc_pad``: document-axis padding multiple.
     * ``bm25_postings_budget``: static flattened-postings budget per query
       for the jitted BM25 gather/scatter kernel (see ops/bm25.py).
     """
@@ -90,7 +89,7 @@ class Config:
     BM25_B: float = 0.83
     BM25_EPSILON: float = 0.05
 
-    TPU = TpuConfig()
+    DEVICE = DeviceConfig()
 
     SOURCE_CONFIGS: Dict[InfoSource, SourceConfig] = {
         InfoSource.NICE: SourceConfig(

@@ -17,7 +17,7 @@ class BaseJudgeEmbeddings:
 
 
 class EmbedderJudgeEmbeddings(BaseJudgeEmbeddings):
-    """Adapter over any retrieval.embed Embedder (Voyage/OpenAI/on-TPU)."""
+    """Adapter over any retrieval.embed Embedder (Voyage/OpenAI/on-device)."""
 
     def __init__(self, embedder):
         self.embedder = embedder

@@ -8,7 +8,7 @@
 * FaithfulnesswithHHEM (_faithfulness.py:214): faithfulness with the NLI
   verdict stage replaced by a LOCAL hallucination-detection classifier
   instead of a judge-LLM call — here any callable
-  ``(premise, hypothesis) -> score in [0,1]`` works, e.g. the on-TPU
+  ``(premise, hypothesis) -> score in [0,1]`` works, e.g. the on-device
   cross-encoder from a_nice_rag_tpu.models after NLI fine-tuning.
 """
 

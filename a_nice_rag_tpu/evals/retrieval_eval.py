@@ -1,6 +1,6 @@
 """Retrieval evaluation harness: the framework's regression gate.
 
-Re-implements the reference benchmark (src/retrieval_eval.py) TPU-first:
+Re-implements the reference benchmark (src/retrieval_eval.py) on device:
 instead of building a ranked Python list per query and scanning for the
 gold id (reference evaluate_query, :51-84), the rank of the gold chunk is
 computed ON DEVICE for a whole query batch at once:

@@ -1,4 +1,4 @@
-"""HBM-resident array index: the framework's storage layer.
+"""Device-resident array index: the framework's storage layer.
 
 Replaces the reference's L1/L2 layers (SQLite chunk DBs decoded row-by-row
 into pandas DataFrames + pickled rank_bm25 index; ``src/database_manager.py``)

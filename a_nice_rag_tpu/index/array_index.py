@@ -2,7 +2,7 @@
 
 Design stance (SURVEY.md §7): the reference's row-wise pandas/SQLite/pickle
 world becomes a columnar, array-resident index. The build is a host-side
-(NumPy) pass; the result is uploaded to HBM once and queried by the jitted
+(NumPy) pass; the result is uploaded to the device once and queried by the jitted
 kernels in :mod:`a_nice_rag_tpu.ops`.
 """
 
@@ -175,7 +175,7 @@ def dense_impact_from_csr(
 ) -> Bm25DenseArrays:
     """Materialize the [V, N_pad] eager-impact matrix from CSR postings.
 
-    MXU fast path for BM25 scoring (see ops.bm25.bm25_scores_dense);
+    matmul fast path for BM25 scoring (see ops.bm25.bm25_scores_dense);
     built on host with one scatter, uploaded once.
     """
     indptr = np.asarray(bm25.indptr)
@@ -199,7 +199,7 @@ class ArrayIndex:
     vocab: Optional[Dict[str, int]]
     bm25_stats: Optional[Dict[str, float]]
     bm25_doc_mask: Optional[np.ndarray] = None  # docs with >=1 token
-    bm25_dense: Optional[Bm25DenseArrays] = None  # MXU fast path
+    bm25_dense: Optional[Bm25DenseArrays] = None  # matmul fast path
     # int8-quantized dense matrices (4x memory; per-row scales) — a
     # model lives in EITHER ``dense`` or ``dense_q``, never both. Built
     # via build_index(quantize_dense=...); served by the engine's int8
@@ -316,8 +316,6 @@ def build_index(
     normalize: bool = False,
     bm25_dense_max_bytes: int = 4 << 30,
     bm25_dense_dtype: str = "float32",
-    streaming_align: int = 8192,
-    streaming_threshold: int = 1 << 19,
     quantize_dense=False,
 ) -> ArrayIndex:
     """Build the hybrid array index.
@@ -329,18 +327,10 @@ def build_index(
 
     ``quantize_dense``: True (all models) or a sequence of model names —
     those matrices are stored int8 with per-row scales (4x memory; a
-    10M x 2048 corpus fits one chip) and served by the engine's int8
+    10M x 2048 corpus fits one card) and served by the engine's int8
     scoring paths; the f32 matrix is not kept.
-
-    Corpora at or above ``streaming_threshold`` documents pad the doc
-    axis to ``streaming_align`` (instead of ``pad_multiple``) so the
-    streaming Pallas top-k kernels get their native lane-aligned layout
-    without a per-call zero-pad copy; relative waste is < 1.6% at the
-    threshold and shrinks with N.
     """
     n = len(ids)
-    if n >= streaming_threshold:
-        pad_multiple = max(pad_multiple, streaming_align)
     n_pad = _pad_to(n, pad_multiple)
     meta = CorpusMeta(
         ids=list(ids),

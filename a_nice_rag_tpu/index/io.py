@@ -121,7 +121,7 @@ def load_index(path: str, emb_dtype: str = "float32") -> ArrayIndex:
             n_docs_padded=meta_d["n_docs_padded"],
         )
         bm25_doc_mask = data["bm25/doc_mask"]
-        # The MXU fast-path matrix is derived, not stored: rebuild it
+        # The matmul fast-path matrix is derived, not stored: rebuild it
         # when it fits the default memory budget (see build_index).
         v = bm25.vocab_size
         if v * meta_d["n_docs_padded"] * 4 <= (4 << 30):

@@ -2,18 +2,18 @@
 
 The reference's dense search is an exact full-corpus ``np.dot``
 (src/search_engine.py:128-142). At multi-million-document scale the
-exact streaming kernel is HBM-bandwidth-bound — every query batch reads
+exact streaming scan is bound by device-memory bandwidth — every batch reads
 the whole matrix. IVF trades a small recall loss for reading only the
 probed fraction: spherical k-means clusters the corpus at build time
 (ops/kmeans.py), documents are permuted cluster-major, and a query
 batch scores only the tiles covering its top-``nprobe`` clusters
-through the scalar-prefetch Pallas kernel (ops/pallas/ivf_topk.py).
+through the streaming top-k's tile-table operand (ops/streaming.py).
 
-Everything here is TPU-shaped: the probe (q @ centroids^T + top_k) and
-the tile-table construction (sort-based dedup over a static-size
-candidate set) run inside one jit; cluster boundaries over-scan into
-neighbouring tiles rather than padding per cluster, so HBM layout stays
-dense and scoring stays exact over the scheduled tiles.
+The probe (q @ centroids^T + top_k) and the tile-table construction
+(sort-based dedup over a static-size candidate set) run inside one jit;
+cluster boundaries over-scan into neighbouring tiles rather than padding
+per cluster, so the device layout stays dense and scoring stays exact
+over the scheduled tiles.
 """
 
 from __future__ import annotations
@@ -62,12 +62,18 @@ class IVFDense:
         return self.centroids.shape[0]
 
     @property
-    def _rows(self) -> jax.Array:
-        return self.emb if self.emb is not None else self.values
+    def rows(self):
+        """The permuted matrix: ``emb``, or a QuantizedDense."""
+        if self.emb is not None:
+            return self.emb
+        from a_nice_rag_tpu.ops.quantized import QuantizedDense
+
+        return QuantizedDense(values=self.values, scales=self.scales)
 
     @property
     def n_tiles(self) -> int:
-        return self._rows.shape[0] // self.tile_n
+        rows = self.emb if self.emb is not None else self.values
+        return rows.shape[0] // self.tile_n
 
 
 # Pytree registration so an IVFDense can cross a jit boundary (the
@@ -372,6 +378,14 @@ def attach_ivf(
     return ivf
 
 
+def ivf_fetch_k(k: int, spilled: bool, n_rows: int) -> int:
+    """Candidates an IVF scan fetches for a top-k. A spilled layout can
+    surface a boundary document from BOTH of its clusters, so it fetches
+    double (at most ``n_rows``), merges the duplicates and compacts back
+    to k."""
+    return min(2 * k, n_rows) if spilled else k
+
+
 def ivf_search(
     ivf: IVFDense,
     queries: jax.Array,
@@ -380,7 +394,9 @@ def ivf_search(
     max_tiles: Optional[int] = None,
     interpret: bool = False,
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
-    """ANN top-k: probe ``nprobe`` clusters per query, scan the union.
+    """ANN top-k: probe ``nprobe`` clusters per query, scan the union
+    through the streaming top-k (``interpret`` runs its kernel in the
+    Pallas interpreter).
 
     Returns (values [B, k] desc, ORIGINAL doc rows [B, k] with -1 for
     unfilled slots, n_unique tile count for overflow observability).
@@ -388,15 +404,9 @@ def ivf_search(
     scheduled) — the parity anchor for tests. For an int8 IVF the float
     queries are quantized on the fly (probe scores stay float).
     """
-    from a_nice_rag_tpu.ops.pallas.ivf_topk import (
-        ivf_dense_top_k,
-        ivf_dense_top_k_int8,
-    )
+    from a_nice_rag_tpu.ops.streaming import choose_route, dense_stream_top_k
 
-    # Spilled layouts can surface a boundary document from BOTH of its
-    # clusters: fetch double-width, merge duplicates (identical scores;
-    # keep one), compact back to k.
-    k_fetch = min(2 * k, ivf.n_real) if ivf.spilled else k
+    k_fetch = ivf_fetch_k(k, ivf.spilled, ivf.n_real)
     if max_tiles is None:
         # Worst case: every probed cluster on a distinct tile run, plus
         # batch-wide dedup usually shrinks this a lot. Cap at the whole
@@ -410,19 +420,12 @@ def ivf_search(
         nprobe=nprobe, max_tiles=max_tiles, tile_n=ivf.tile_n,
         mct=ivf.max_cluster_tiles,
     )
-    if ivf.emb is not None:
-        vals, pidx = ivf_dense_top_k(
-            ivf.emb, queries, table, k_fetch,
-            tile_n=ivf.tile_n, n_real=ivf.n_real, interpret=interpret,
-        )
-    else:
-        from a_nice_rag_tpu.ops.quantized import quantize_queries
-
-        qv, qs = quantize_queries(queries)
-        vals, pidx = ivf_dense_top_k_int8(
-            ivf.values, ivf.scales, qv, qs, table, k_fetch,
-            tile_n=ivf.tile_n, n_real=ivf.n_real, interpret=interpret,
-        )
+    route = choose_route(ivf.n_tiles * ivf.tile_n, k_fetch, "stream",
+                         interpret=interpret)
+    vals, pidx = dense_stream_top_k(
+        ivf.rows, queries, k_fetch, route, tiles=table,
+        tile_n=ivf.tile_n, n_valid=ivf.n_real,
+    )
     ids = jnp.where(
         pidx >= 0,
         jnp.take(ivf.perm, jnp.clip(pidx, 0, ivf.perm.shape[0] - 1)),
@@ -449,7 +452,7 @@ def tune_nprobe(
     """Pick the smallest ``nprobe`` whose recall@k vs the exact scan
     meets ``target_recall`` on a validation query batch.
 
-    The TPU analog of the reference's BM25 hyperparameter tuner
+    The counterpart of the reference's BM25 hyperparameter tuner
     (src/processing/bm25_test.py:192-247): tune the latency/quality
     knob offline against held-out queries, then serve with the winner
     (``FusedRetriever(nprobe=...)`` / ``serve_cli --nprobe``). The

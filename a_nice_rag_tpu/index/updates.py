@@ -275,7 +275,7 @@ def append_documents(
         bm25_doc_mask[:old_n] = old_mask[:old_n]
         bm25_doc_mask[old_n:n] = dl > 0
 
-        # Same size gate as build_index: the dense MXU fast path is a
+        # Same size gate as build_index: the dense matmul fast path is a
         # convenience, not worth OOMing an online append over.
         dense_bytes = len(vocab) * n_pad * 4
         if (index.bm25_dense is not None

@@ -1,4 +1,4 @@
-"""On-TPU model family: embedding encoder, cross-encoder reranker, and
+"""On-device model family: embedding encoder, cross-encoder reranker, and
 their contrastive training loop.
 
 The reference delegates embedding and reranking to SaaS APIs (VoyageAI,

@@ -5,7 +5,7 @@ The reference repairs malformed structured LLM output *after* the fact
 with an LLM round-trip (reference ragas_modified/prompt.py FixOutputFormat
 usage); vLLM/outlines-style guided decoding prevents it instead: every
 sampled token is masked to the set the grammar allows, so the output
-ALWAYS matches. TPU-first shape: the whole automaton lives on device as
+ALWAYS matches. Device-first shape: the whole automaton lives on device as
 one dense ``int32 [n_states, vocab]`` next-state table — the decode scan
 carries the per-slot DFA state, gathers one table row per step, masks
 the logits, samples, and advances the state, with no host round-trip

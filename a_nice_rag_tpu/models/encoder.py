@@ -3,8 +3,8 @@
 A compact Qwen3-embedding-style architecture: token embedding, rotary
 position encoding, pre-RMSNorm attention/SwiGLU blocks, masked mean
 pooling, and L2 normalization — so its outputs plug directly into the
-dense index (unit-norm dot product = cosine). All matmuls are
-MXU-shaped (dims multiples of 128 by default) and run in bfloat16 with
+dense index (unit-norm dot product = cosine). All matmuls have
+dims that are multiples of 128 by default and run in bfloat16 with
 float32 accumulation.
 """
 
@@ -130,11 +130,11 @@ def init_encoder(
 
 
 def load_hf_encoder(name: str = "Qwen/Qwen3-Embedding-0.6B"):
-    """Load a HuggingFace Qwen3 embedding model for on-TPU inference.
+    """Load a HuggingFace Qwen3 embedding model for on-device inference.
 
     Converts the cached checkpoint to the weight-exact flax
     implementation (models/qwen3.py) and returns (tokenizer, module,
-    params) — the module runs jitted on TPU. Requires the model files in
+    params) — the module runs jitted on the device. Requires the model files in
     the local HF cache (hermetic environments cannot download); raises
     with guidance otherwise.
     """

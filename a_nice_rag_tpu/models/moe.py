@@ -3,7 +3,7 @@
 Completes the parallelism-axis family (dp x tp: models/train.py,
 dp x pp: models/pipeline.py). The FFN of every block becomes a top-1
 routed mixture of SwiGLU experts with GShard-style EINSUM dispatch —
-one-hot combine/dispatch tensors contracted on the MXU, no
+one-hot combine/dispatch tensors contracted as matmuls, no
 gather/scatter — and expert weights stacked [E, ...] shard over the
 ``ep`` mesh axis. Sharding is GSPMD-style: parameters carry
 NamedShardings and XLA inserts the all-to-alls; the model code stays a

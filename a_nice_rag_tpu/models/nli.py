@@ -2,7 +2,7 @@
 
 The reference's FaithfulnesswithHHEM (ragas_modified/metrics/
 _faithfulness.py:214) swaps the judge-LLM NLI stage for a local
-hallucination-detection classifier. Here the classifier is the on-TPU
+hallucination-detection classifier. Here the classifier is the on-device
 cross-encoder (models/reranker.CrossEncoderReranker) fine-tuned on
 (premise, hypothesis, entailed?) pairs with a sigmoid head; the trained
 ``NliScorer`` plugs straight into

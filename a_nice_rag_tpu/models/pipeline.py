@@ -9,7 +9,7 @@ transposes ppermute to the reverse permute), so the training step is
 plain ``value_and_grad`` + optax over the pipelined forward; a ``dp``
 mesh axis shards the batch as usual.
 
-Layout choices (TPU-first):
+Layout choices:
 
 * embed lookup and the final norm/pool/projection are replicated — they
   are a tiny fraction of FLOPs and keeping them off the pipeline makes

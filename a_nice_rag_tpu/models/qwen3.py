@@ -3,15 +3,15 @@
 The reference serves precomputed ``Qwen3-Embedding-0.6B`` vectors as one
 of its four dense retrieval models (SURVEY.md §2.1; reference
 src/query_rag_retrieval.py:38-111). This module makes that model family
-runnable ON the TPU: a weight-exact flax reimplementation of the Qwen3
+runnable ON the device: a weight-exact flax reimplementation of the Qwen3
 decoder stack (GQA, decoupled head_dim, per-head q/k RMSNorm, rope_theta
 from config, SwiGLU MLP, causal attention) with last-token pooling and
 L2 normalization as used by the Qwen3-Embedding models, plus a converter
 from a HuggingFace ``Qwen3Model`` state dict.
 
 Weights are converted once on host; inference is a single jitted
-bfloat16 forward with float32 accumulation (MXU-friendly: every matmul
-is [B*S, d] x [d, d']). Parity with the torch reference implementation
+bfloat16 forward with float32 accumulation (every matmul is
+[B*S, d] x [d, d']). Parity with the torch reference implementation
 is pinned by tests/test_qwen3_parity.py on a locally-constructed
 random-init model (the hermetic image cannot download the real
 checkpoint; the mapping is architecture-complete either way).
@@ -281,7 +281,7 @@ def load_hf_qwen3_encoder(
     dtype=jnp.bfloat16,
     pool: str = "last",
 ) -> Tuple[Any, Qwen3Encoder, Dict]:
-    """Load + convert a cached HF Qwen3 checkpoint for on-TPU inference.
+    """Load + convert a cached HF Qwen3 checkpoint for on-device inference.
 
     Returns (tokenizer, flax module, params). Requires the model in the
     local HF cache (hermetic environments cannot download).

@@ -1,4 +1,4 @@
-"""Train the on-TPU cross-encoder reranker on retrieval candidates.
+"""Train the on-device cross-encoder reranker on retrieval candidates.
 
 The reference's best configuration is hybrid retrieval + the Voyage
 rerank-2 API, lifting Recall@1 from 0.699 to 0.810 (reference

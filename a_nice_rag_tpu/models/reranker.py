@@ -1,4 +1,4 @@
-"""On-TPU cross-encoder reranker.
+"""On-device cross-encoder reranker.
 
 Replaces the external rerank API (reference src/search_engine.py:161-203)
 with a local cross-encoder: the shared transformer backbone runs over

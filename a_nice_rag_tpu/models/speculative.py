@@ -9,7 +9,7 @@ buys up to gamma+1 tokens). The accepted prefix is exactly what plain
 greedy decoding of the target would have produced, so output quality is
 bit-identical to the target-only stream; only the latency changes.
 
-TPU-first shape: one jitted program per speculation round — the draft's
+Device-first shape: one jitted program per speculation round — the draft's
 gamma-step ``lax.scan``, the target's verify forward over the proposal
 window, and the accept/correct logic (cumprod prefix-match, no dynamic
 shapes) all fuse into ONE dispatch. Both models' KV caches ride the

@@ -1,7 +1,7 @@
 """Hashing tokenizer: hermetic text -> token ids.
 
 A deterministic feature-hashing tokenizer (word pieces hashed into a
-fixed id space) so the on-TPU models run with zero external vocabulary
+fixed id space) so the on-device models run with zero external vocabulary
 files. Real deployments can swap in a cached HF tokenizer; the model
 code only sees int arrays either way.
 """

@@ -1,4 +1,4 @@
-"""Contrastive training for the encoder (and cross-encoder) on TPU.
+"""Contrastive training for the encoder (and cross-encoder) on device.
 
 Training objective: symmetric InfoNCE with in-batch negatives — the
 standard recipe for embedding models. Multi-chip execution is GSPMD

@@ -9,7 +9,7 @@
 // caller-provided buffers), runs the device program, and hands back raw
 // result buffers (anr_serve_reply) that native code frames and writes.
 //
-// This is the TPU-native analog of the reference's serving hop
+// This is the on-device analog of the reference's serving hop
 // (reference src/app.py:200-229 -> query_rag.py:263): where the
 // reference serves one query at a time through Streamlit callbacks, the
 // rebuild batches at the socket layer in native code so the chip sees

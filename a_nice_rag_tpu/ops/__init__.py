@@ -1,4 +1,4 @@
-"""TPU compute kernels for the retrieval core.
+"""Device compute ops for the retrieval core.
 
 Everything here is functional, jit-safe (static shapes, no data-dependent
 Python control flow) and batched over queries. These ops replace the

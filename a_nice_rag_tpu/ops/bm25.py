@@ -8,7 +8,7 @@ reference shipped (``src/processing/bm25_search.py:45-79``):
                epsilon * mean(idf)   (rank_bm25's epsilon rule)
     score(d) = sum_t idf(t) * tf * (k1 + 1) / (tf + k1 * (1 - b + b*dl/avgdl))
 
-TPU design ("eager impact scoring"): because (k1, b, dl, avgdl, idf) are all
+Design ("eager impact scoring"): because (k1, b, dl, avgdl, idf) are all
 fixed at index-build time, the full per-(term, doc) impact
 ``idf*tf*(k1+1)/(tf+K_d)`` is precomputed into a CSR postings structure.
 Query scoring is then a pure flattened gather of at most
@@ -23,17 +23,18 @@ the vocab lookup and contribute nothing.
 
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from a_nice_rag_tpu.ops.topk import masked_top_k
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class Bm25Arrays:
     """Device-resident CSR postings with precomputed impact scores.
 
@@ -48,7 +49,7 @@ class Bm25Arrays:
     indptr: jax.Array
     doc_ids: jax.Array
     impact: jax.Array
-    n_docs_padded: int = struct.field(pytree_node=False)
+    n_docs_padded: int = dataclasses.field(metadata=dict(static=True))
 
     @property
     def nnz(self) -> int:
@@ -125,16 +126,17 @@ def bm25_top_k(
     return masked_top_k(scores, k)
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class Bm25DenseArrays:
     """Dense eager-impact matrix: impact[v, d] = full BM25 contribution of
     term v in document d (0 where the term is absent).
 
-    Turns BM25 scoring into an MXU matmul: with query term-count vector
-    q_tf [V], scores = q_tf @ impact. On TPU this is ~1000x faster than
-    scatter-style sparse scoring for corpus sizes where V*N fits in HBM
-    (the reference corpus is ~30k vocab x ~10k docs: <2 GB f32, <1 GB
-    bf16). The CSR form (:class:`Bm25Arrays`) remains the representation
+    Turns BM25 scoring into a matmul: with query term-count vector
+    q_tf [V], scores = q_tf @ impact, which replaces a scatter per
+    query for corpus sizes where V*N fits in device memory (the
+    reference corpus is ~30k vocab x ~10k docs: <2 GB f32, <1 GB bf16).
+    The CSR form (:class:`Bm25Arrays`) remains the representation
     for memory-constrained / sharded-at-scale settings.
     """
 
@@ -157,8 +159,10 @@ def bm25_scores_dense(
 
     q_terms: [B, T] term ids (-1 pad/OOV). Builds the [B, V] term-count
     matrix with a (tiny) scatter-add and contracts it against the impact
-    matrix on the MXU. Duplicate terms accumulate counts, matching
-    rank_bm25's per-occurrence summation.
+    matrix. Duplicate terms accumulate counts, matching rank_bm25's
+    per-occurrence summation. An f32 impact matrix is contracted at
+    ``Precision.HIGHEST`` (never TF32); a bf16 one as bf16 x bf16 with
+    f32 accumulation.
     """
     b, t = q_terms.shape
     v = bm25.vocab_size
@@ -171,6 +175,8 @@ def bm25_scores_dense(
         q_tf[:, :v],
         bm25.impact,
         dimension_numbers=(((1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST
+        if bm25.impact.dtype == jnp.float32 else None,
         preferred_element_type=jnp.float32,
     )
 
@@ -183,9 +189,9 @@ def bm25_scores_dense_gather(
 
     Reads only the B*T query-term rows of the impact matrix instead of
     all V rows: at B=1, T<=16 on the reference corpus that is ~0.6 MB of
-    HBM traffic vs ~780 MB for the matmul form — the difference between
-    ~0.01 ms and ~1.2 ms device time (measured, TPU v5e). Crossover vs
-    :func:`bm25_scores_dense` is at roughly B*T = V. Numerically equal to
+    device-memory traffic vs ~780 MB for the matmul form (device times
+    not measured on the H100). Crossover vs :func:`bm25_scores_dense`
+    is taken at roughly B*T = V. Numerically equal to
     the matmul form up to f32 summation order (duplicate query terms
     contribute once per occurrence, as rank_bm25 does).
     """
@@ -209,13 +215,11 @@ def bm25_top_k_sparse(
     """BM25 top-k without an N-sized score vector OR a scatter.
 
     ``df_cap`` (optional) switches the postings fetch to per-term
-    window slices — ~10x faster than the flat budget gather, but the
-    cap MUST be >= every queried term's df (:func:`max_df`); a smaller
+    window slices instead of the flat budget gather, but the cap MUST be >= every queried term's df (:func:`max_df`); a smaller
     cap silently truncates longer posting lists.
 
-    XLA scatter serializes on TPU (the bm25_scores path costs seconds at
-    large budgets) and a dense [B, N] accumulator is HBM-hostile at
-    sharded scale. Instead: gather the query's (doc id, impact) postings,
+    A dense [B, N] accumulator costs device memory at sharded scale, and
+    a scatter per query is the slow part of bm25_scores. Instead: gather the query's (doc id, impact) postings,
     SORT by doc id, segment-sum duplicates (same doc hit by several
     terms), and take top-k over the per-document totals directly —
     O(P log P) per query with P = postings budget, independent of N.
@@ -299,12 +303,9 @@ def _rare_candidates_sliced(
     Posting lists are contiguous CSR runs, so the T query terms' lists
     are T batched ``lax.dynamic_slice`` windows of static width
     ``df_cap`` (>= the corpus's max rare-term df) instead of a
-    ``budget``-wide elementwise gather. XLA's TPU elementwise gather is
-    ~20-100x off roofline (measured: [256,4096] from a 16M-element
-    array costs tens of ms) while B*T row slices cost ~nothing, and the
-    downstream sort width drops from ``budget`` to ``T*df_cap`` — at
-    N=2M synthetic this took the rare stage from ~103 ms to ~10 ms.
-    Prefer this path whenever T*df_cap is within ~4x of the flat
+    ``budget``-wide elementwise gather: B*T contiguous row slices, and
+    the downstream sort width drops from ``budget`` to ``T*df_cap``
+    (not measured on the H100). Prefer this path whenever T*df_cap is within ~4x of the flat
     budget; heavily skewed rare tiers (huge df_cap) keep the flat
     gather.
     """
@@ -348,17 +349,16 @@ def _segment_totals(
     its LAST occurrence, -inf elsewhere; _SENTINEL_DOC-padded.
     """
     # Variadic sort carries the values along with the id keys in ONE
-    # sort — measured 3.3x over argsort + two gathers on TPU v5e.
+    # sort instead of an argsort and two gathers.
     s_ids, s_vals = jax.lax.sort((ids, vals), dimension=-1, num_keys=1)
     # Segment totals WITHOUT a scatter: impacts are positive, so the
     # running csum is nondecreasing and a cummax broadcasts each
     # group's starting prefix to all its members. The group total
     # lands on the group's LAST element. Precision note: the
     # cumsum-difference cancels ~budget*eps absolute (~1e-3 at
-    # budget 4096), the same order as the MXU's default-bf16 matmul
-    # noise on the dense paths; rank order is unaffected in practice.
-    # (A segmented associative_scan is exact-within-group but
-    # measured 2.5x slower end-to-end on TPU v5e.)
+    # budget 4096); rank order is unaffected in practice. (A segmented
+    # associative_scan is exact within a group; not measured on this
+    # card.)
     csum = jnp.cumsum(s_vals)
     csum_before = jnp.concatenate([jnp.zeros((1,), csum.dtype), csum[:-1]])
     first = jnp.concatenate(
@@ -377,20 +377,21 @@ def _segment_totals(
     return s_ids, score
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class Bm25TwoTier:
     """Two-tier postings layout for large sharded corpora.
 
     High-df ("common") terms — the handful of terms whose posting lists
     dominate the flattened-gather budget — get dense impact rows scored
-    as an MXU matmul; the long tail stays CSR with a budget bounded by
+    as a matmul; the long tail stays CSR with a budget bounded by
     the rare-term df cap. Splitting by df keeps exactness: every posting
     lives in exactly one tier and the tiers' scores add.
 
     common_impact_t: [N_pad, V_common] dense impact, document-major —
                    the same layout as a dense embedding matrix, so the
-                   common tier rides the MXU matmul AND the streaming
-                   Pallas top-k kernel unchanged.
+                   common tier rides the dense matmul AND the streaming
+                   top-k (ops.streaming) unchanged.
     common_map:    [V + 1] int32 — full-vocab term id -> common column,
                    -1 for rare/absent (slot V covers padded queries).
     rare:          CSR with common terms' ranges emptied.
@@ -494,8 +495,7 @@ def bm25_scores_two_tier(
 
 @partial(
     jax.jit,
-    static_argnames=("k", "budget", "block_q", "block_n", "interpret",
-                     "df_cap"),
+    static_argnames=("k", "budget", "interpret", "df_cap"),
 )
 def bm25_top_k_two_tier(
     tt: Bm25TwoTier,
@@ -503,16 +503,15 @@ def bm25_top_k_two_tier(
     k: int,
     mask: Optional[jax.Array] = None,
     budget: int = 2048,
-    block_q: int = 128,
-    block_n: int = 8192,
     interpret: bool = False,
     df_cap: Optional[int] = None,
 ) -> Tuple[jax.Array, jax.Array]:
     """Exact two-tier BM25 top-k WITHOUT materializing [B, N] scores.
 
     The common tier is a matmul against ``common_impact_t`` — the same
-    shape as dense retrieval — so it streams through the Pallas fused
-    matmul+top-k kernel (O(1) HBM for scores). The rare tier touches at
+    shape as dense retrieval — so it takes the streaming dense top-k
+    (:func:`ops.streaming.dense_stream_top_k`; ``interpret`` runs its
+    kernel in the Pallas interpreter). The rare tier touches at
     most ``budget`` postings per query, so every document with a nonzero
     rare score is enumerable. Exactness: a document in the true top-k
     either has a rare posting for this query (it is in the rare
@@ -526,20 +525,15 @@ def bm25_top_k_two_tier(
     because impacts are nonnegative). Returns (scores [B, k],
     doc ids [B, k]), -inf/-1 padded.
     """
-    from a_nice_rag_tpu.ops.pallas import fused_dense_top_k
+    from a_nice_rag_tpu.ops.streaming import choose_route, dense_stream_top_k
 
     n_pad = tt.n_docs_padded
-    b = q_terms.shape[0]
     q_tf = _two_tier_q_tf(tt, q_terms)
 
-    # Common tier: streaming fused matmul+top-k over [N_pad, V_common]
-    # (the kernel zero-pads misaligned doc axes itself).
-    bq = block_q
-    while b % bq:
-        bq //= 2
-    c_vals, c_ids = fused_dense_top_k(
-        tt.common_impact_t, q_tf, k, mask=mask,
-        block_q=bq, block_n=block_n, interpret=interpret,
+    # Common tier: streaming matmul + top-k over [N_pad, V_common].
+    route = choose_route(n_pad, k, "stream", interpret=interpret)
+    c_vals, c_ids = dense_stream_top_k(
+        tt.common_impact_t, q_tf, k, route, mask=mask
     )
 
     # Rare tier: per-document totals for every touched document,

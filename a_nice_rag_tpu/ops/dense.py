@@ -5,9 +5,10 @@ Replaces the reference hot loop ``np.dot(q, E.T)`` + argpartition top-k
 unit-normalized at index build time (the reference relies on Voyage
 returning unit-norm vectors), so the dot product IS the cosine similarity.
 
-The scoring matmul is the MXU target: [B, D] x [D, N] with a float32
-accumulator. Embeddings may be stored bfloat16 to halve HBM traffic; the
-accumulation dtype is controlled separately for ranking-parity use cases.
+The scoring matmul is [B, D] x [D, N] with a float32 accumulator.
+Embeddings may be stored bfloat16 to halve device-memory traffic; f32
+matrices are contracted at ``Precision.HIGHEST`` so an f32 index is
+ranked in f32, not TF32.
 """
 
 from __future__ import annotations
@@ -29,11 +30,19 @@ def dense_scores(
     queries: jax.Array,
     score_dtype: jnp.dtype = jnp.float32,
 ) -> jax.Array:
-    """Similarity scores [B, N] = queries [B, D] @ emb [N, D]^T."""
+    """Similarity scores [B, N] = queries [B, D] @ emb [N, D]^T.
+
+    The queries are rounded to the index's dtype first, as on the
+    streaming routes (``ops.streaming``), so every route scores one
+    index at one precision: an f32 index at ``Precision.HIGHEST`` (IEEE
+    f32, never TF32), a bf16 index as bf16 x bf16 with f32 accumulation.
+    """
     return jax.lax.dot_general(
-        queries,
+        queries.astype(emb.dtype),
         emb,
         dimension_numbers=(((1,), (1,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST
+        if emb.dtype == jnp.float32 else None,
         preferred_element_type=score_dtype,
     )
 
@@ -61,37 +70,20 @@ def dense_top_k(
     return masked_top_k(scores, k)
 
 
-# Streaming Pallas kernel pays off once the [B, N] score matrix stops
-# fitting comfortably in HBM traffic budgets.
-_PALLAS_THRESHOLD = 1 << 18
-
-
 def dense_top_k_auto(
     emb: jax.Array,
     queries: jax.Array,
     k: int,
     mask: Optional[jax.Array] = None,
     backend: str = "auto",
-    block_q: int = 128,
-    block_n: int = 8192,
+    interpret: bool = False,
 ) -> Tuple[jax.Array, jax.Array]:
-    """Backend-routing wrapper: the streaming Pallas kernel
-    (ops.pallas.fused_dense_top_k) on TPU for large corpora when shapes
-    tile cleanly, the XLA path otherwise."""
-    n = emb.shape[0]
-    b = queries.shape[0]
-    use_pallas = backend == "pallas" or (
-        backend == "auto"
-        and jax.default_backend() == "tpu"
-        and n >= _PALLAS_THRESHOLD
-        and n % block_n == 0
-        and b % block_q == 0
-        and k <= 128
-    )
-    if use_pallas:
-        from a_nice_rag_tpu.ops.pallas import fused_dense_top_k
+    """Dense top-k by the route :func:`ops.streaming.choose_route`
+    picks: streaming (never [B, N] scores) for large corpora on the GPU,
+    the XLA path above otherwise."""
+    from a_nice_rag_tpu.ops.streaming import choose_route, dense_stream_top_k
 
-        return fused_dense_top_k(
-            emb, queries, k, mask=mask, block_q=block_q, block_n=block_n
-        )
+    route = choose_route(emb.shape[0], k, backend, interpret=interpret)
+    if route.stream:
+        return dense_stream_top_k(emb, queries, k, route, mask=mask)
     return dense_top_k(emb, queries, k, mask=mask)

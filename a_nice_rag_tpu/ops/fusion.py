@@ -74,7 +74,7 @@ def wrrf_top_n_sparse(
     query instead of O(N): sort the L*K (doc id, contribution) pairs by
     id, segment-sum contributions of equal ids, and take the top-n group
     totals. This is the form used at sharded scale (N in the millions),
-    where scattering into [B, N] would dominate HBM traffic.
+    where scattering into [B, N] would dominate device-memory traffic.
 
     indices: [L, B, K] global doc ids (-1 = padding). Returns
     (scores [B, n], ids [B, n]) with -inf/-1 marking absent entries.
@@ -93,7 +93,7 @@ def wrrf_top_n_sparse(
 
     def per_query(ids_q: jax.Array, c_q: jax.Array):
         # Variadic sort: values ride along with the id keys in one sort
-        # (3.3x over argsort + gathers on TPU, see ops/bm25).
+        # (instead of an argsort and gathers, see ops/bm25).
         s_ids, s_c = jax.lax.sort((ids_q, c_q), dimension=-1, num_keys=1)
         first = jnp.concatenate(
             [jnp.ones((1,), bool), s_ids[1:] != s_ids[:-1]]

@@ -1,17 +1,15 @@
 """On-device spherical k-means for IVF coarse quantization.
 
 The reference has no ANN structure at all — its dense search is a full
-``np.dot`` over the corpus (src/search_engine.py:128-138). The TPU
-rebuild adds an IVF (inverted-file) layer on top of the exact streaming
-kernels: cluster the corpus once at build time, then probe only the
+``np.dot`` over the corpus (src/search_engine.py:128-138). The rebuild
+adds an IVF (inverted-file) layer on top of the exact streaming top-k: cluster the corpus once at build time, then probe only the
 top-``p`` clusters per query. This module is the build-time half.
 
-TPU-first design: Lloyd iterations are expressed entirely as matmuls —
-assignment is ``argmax(X @ C^T)`` (cosine == dot on unit-norm rows) and
-the centroid update is ``onehot(A)^T @ X``, both MXU-shaped — streamed
-over row chunks inside one jit per iteration. No scatter (serializes on
-TPU), no host round-trips inside an iteration, static shapes
-throughout.
+Design: Lloyd iterations are expressed entirely as matmuls — assignment
+is ``argmax(X @ C^T)`` (cosine == dot on unit-norm rows) and the
+centroid update is ``onehot(A)^T @ X`` — streamed over row chunks inside
+one jit per iteration. No scatter, no host round-trips inside an
+iteration, static shapes throughout.
 """
 
 from __future__ import annotations

@@ -1,10 +1,6 @@
-"""Pallas TPU kernels for the retrieval hot path."""
+"""Pallas kernels for the retrieval hot path (Triton route, Hopper)."""
 
-from a_nice_rag_tpu.ops.pallas.autotune import (  # noqa: F401
-    FusedKernelConfig,
-    tune_fused_blocks,
-)
-from a_nice_rag_tpu.ops.pallas.fused_topk import (  # noqa: F401
-    fused_dense_top_k,
-    fused_dense_top_k_int8,
+from a_nice_rag_tpu.ops.pallas.stream_topk import (  # noqa: F401
+    merge_candidates,
+    stream_top_k,
 )

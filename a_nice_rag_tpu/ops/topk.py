@@ -1,7 +1,7 @@
 """Top-k primitives.
 
 The reference selects top-k with ``np.argpartition`` + descending
-``argsort`` (``src/search_engine.py:84-85``). On TPU the equivalent is
+``argsort`` (``src/search_engine.py:84-85``). In JAX the equivalent is
 ``jax.lax.top_k``; for large document axes we use a two-stage hierarchical
 top-k so XLA never has to sort the full score vector: per-tile top-k
 (parallel over tiles, VPU-friendly) followed by a top-k over the small

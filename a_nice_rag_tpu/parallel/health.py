@@ -2,7 +2,7 @@
 
 The reference's failure handling is app-level graceful degradation
 (SURVEY.md §5: rerank fallback, missing-BM25 => dense-only; reference
-src/search_engine.py:201-203, src/query_rag.py:100-106). The TPU-native
+src/search_engine.py:201-203, src/query_rag.py:100-106). The on-device
 analog guards the hardware layer: a monitor probes every device in the
 serving mesh with a tiny roundtrip computation, and when a chip stops
 answering it rebuilds the sharded index over the surviving pool

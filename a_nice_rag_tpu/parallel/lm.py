@@ -2,7 +2,7 @@
 
 The reference has no on-device generation at all (its LLM hop is a
 per-request SaaS stream, reference src/query_rag.py:434-513); this
-module is part of the net-new TPU serving stack. models/decoder.py is
+module is part of the net-new device serving stack. models/decoder.py is
 written as a plain single-device flax module — tensor parallelism here
 is pure GSPMD *placement*: we shard the weight matrices and KV caches
 with `jax.device_put(NamedSharding(...))` and let XLA propagate the

@@ -10,13 +10,13 @@ insert collectives):
 
 Inside ``shard_map`` each device scores its corpus shard and takes a
 local top-k; local indices are rebased to global ids, all-gathered over
-the ``corpus`` axis (ICI — payload is S*k ids+scores per query, tiny),
+the ``corpus`` axis (payload is S*k ids+scores per query, tiny),
 and k-way merged. The merge of per-shard top-k lists is EXACT: any
 global top-k document is by definition in its own shard's top-k. Fusion
 then runs on global id lists via the sparse WRRF (no N-sized buffer).
 
 This replaces the "distributed communication backend: absent" row of
-SURVEY.md §5 with XLA collectives over ICI/DCN.
+SURVEY.md §5 with XLA collectives, within a host and across hosts.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from a_nice_rag_tpu.ops.quantized import (
     quantize_queries,
     quantized_dense_scores,
 )
+from a_nice_rag_tpu.ops.streaming import choose_route, dense_stream_top_k
 from a_nice_rag_tpu.ops.topk import masked_top_k, merge_top_k
 
 
@@ -67,8 +68,8 @@ class ShardedIndex:
     data_axis: str = "dp"
     # Multi-host layout: when set, the document axis is sharded over
     # (host_axis, corpus_axis) host-major and top-k merges run
-    # hierarchically — intra-host over ICI first, then across hosts over
-    # DCN (SURVEY.md §7 stage 5 "DCN for multi-host").
+    # hierarchically — within each host first, then across hosts
+    # (SURVEY.md §7 stage 5, multi-host).
     host_axis: Optional[str] = None
     # Optional two-tier layout (common dense rows + rare CSR per shard).
     tt_common: Optional[jax.Array] = None  # [S, Vc, N_local]
@@ -82,8 +83,8 @@ class ShardedIndex:
     two_tier_common: int = 0
     two_tier_dtype: str = "bfloat16"
     # Per-shard IVF ANN layout for ONE flagship model (shard_ivf):
-    # each shard clusters its own rows; probing and the scalar-prefetch
-    # kernel run per shard inside the pjit program, merged like every
+    # each shard clusters its own rows; probing and the probed streaming
+    # top-k run per shard inside the pjit program, merged like every
     # other ranked list. Rows are the cluster-major permuted local
     # matrix ([S, Npl, D] float or a QuantizedDense of stacked
     # values/scales); perms map permuted -> LOCAL row.
@@ -200,6 +201,61 @@ def _shard_csr(
     return s_indptr, s_doc_ids, s_impact
 
 
+def _to_mesh(x, n_total: int, sharding: NamedSharding) -> jax.Array:
+    """Lay ``x`` out over the mesh with its doc axis zero-padded to
+    ``n_total``, one shard at a time: each device receives its own rows
+    (padded alone), so neither the host nor the source device ever holds
+    a second full copy of the corpus."""
+    n = x.shape[0]
+    xp = np if isinstance(x, np.ndarray) else jnp
+
+    def shard(index):
+        lo, hi, _ = index[0].indices(n_total)
+        part = x[min(lo, n):min(hi, n)]
+        if part.shape[0] < hi - lo:
+            part = xp.pad(part, [(0, hi - lo - part.shape[0])]
+                          + [(0, 0)] * (x.ndim - 1))
+        return part
+
+    return jax.make_array_from_callback(
+        (n_total,) + tuple(x.shape[1:]), sharding, shard
+    )
+
+
+def _local_rows(sidx: "ShardedIndex", model_name: str, width: int,
+                perm=None):
+    """A model's rows per shard, ``[S, width, D]`` (plus scales
+    ``[S, width]`` for an int8 model, else None), cut or zero-padded
+    from the sharded matrix on the devices. With ``perm`` ([S, width]
+    local row ids, -1 for a pad slot) row j of shard s is local row
+    ``perm[s, j]`` instead, zero where the id is -1."""
+    mat = sidx.dense[model_name]
+    s_cnt, nl = sidx.n_shards, sidx.n_local
+
+    def fit(x, p):
+        x = x.reshape((s_cnt, nl) + x.shape[1:])
+        if p is not None:
+            taken = jax.vmap(lambda a, i: jnp.take(a, i, axis=0))(
+                x, jnp.clip(p, 0, nl - 1))
+            live = (p >= 0).reshape(p.shape + (1,) * (x.ndim - 2))
+            return jnp.where(live, taken, jnp.zeros((), x.dtype))
+        if width > nl:
+            return jnp.pad(
+                x, [(0, 0), (0, width - nl)] + [(0, 0)] * (x.ndim - 2)
+            )
+        return x[:, :width]
+
+    def laid_out(x):
+        spec = P(sidx.doc_axes, *([None] * x.ndim))
+        return jax.jit(
+            fit, out_shardings=NamedSharding(sidx.mesh, spec)
+        )(x, perm)
+
+    if isinstance(mat, QuantizedDense):
+        return laid_out(mat.values), laid_out(mat.scales)
+    return laid_out(mat), None
+
+
 def shard_index(index: ArrayIndex, mesh: Mesh, corpus_axis: str = "corpus",
                 data_axis: str = "dp", two_tier_common: int = 0,
                 two_tier_dtype: str = "bfloat16",
@@ -212,8 +268,8 @@ def shard_index(index: ArrayIndex, mesh: Mesh, corpus_axis: str = "corpus",
     (see ops.bm25.split_two_tier).
 
     ``host_axis`` shards the document axis over (host, corpus) host-major
-    for multi-host meshes; retrieval then merges hierarchically (ICI
-    within a host first, then one k-list per host over DCN).
+    for multi-host meshes; retrieval then merges hierarchically (within
+    a host first, then one k-list per host across hosts).
     """
     n_shards = mesh.shape[corpus_axis]
     if host_axis is not None:
@@ -227,22 +283,16 @@ def shard_index(index: ArrayIndex, mesh: Mesh, corpus_axis: str = "corpus",
     n_local = -(-n_local // 128) * 128
     n_total = n_local * n_shards
 
+    sh_rows = NamedSharding(mesh, P(doc_axes, None))
     dense = {}
     for m, emb in index.dense.items():
-        arr = np.asarray(emb)
-        arr = np.pad(arr, ((0, n_total - arr.shape[0]), (0, 0)))
-        sh = NamedSharding(mesh, P(doc_axes, None))
-        dense[m] = jax.device_put(arr, sh)
+        dense[m] = _to_mesh(emb, n_total, sh_rows)
     for m, qd in (index.dense_q or {}).items():
-        vals = np.asarray(qd.values)
-        scl = np.asarray(qd.scales)
-        vals = np.pad(vals, ((0, n_total - vals.shape[0]), (0, 0)))
-        scl = np.pad(scl, (0, n_total - scl.shape[0]))
         dense[m] = QuantizedDense(
-            values=jax.device_put(
-                vals, NamedSharding(mesh, P(doc_axes, None))
+            values=_to_mesh(qd.values, n_total, sh_rows),
+            scales=_to_mesh(
+                qd.scales, n_total, NamedSharding(mesh, P(doc_axes))
             ),
-            scales=jax.device_put(scl, NamedSharding(mesh, P(doc_axes))),
         )
 
     bm25_indptr = bm25_doc_ids = bm25_impact = None
@@ -339,7 +389,7 @@ def shard_ivf(
     nearest LOCAL clusters too (all of them, or only those within
     ``spill_margin`` cosine of the primary), like
     index.ivf.build_ivf_dense(spill=True); duplicates stay within one
-    shard, so the retriever dedups per shard before the ICI merge.
+    shard, so the retriever dedups per shard before the cross-shard merge.
 
     Returns a new ShardedIndex carrying the IVF arrays; serve it with
     ``ShardedRetriever(..., nprobe=p)``.
@@ -350,11 +400,7 @@ def shard_ivf(
         spherical_kmeans_batched,
     )
 
-    base = sidx.base_index
-    mat = base.dense_matrix(model_name)
-    quantized = isinstance(mat, QuantizedDense)
-    vals_np = np.asarray(mat.values if quantized else mat)
-    n_docs = base.n_docs  # rows past n_docs are index padding
+    n_docs = sidx.base_index.n_docs  # rows past n_docs are index padding
     nl, s_cnt = sidx.n_local, sidx.n_shards
     npl = -(-nl // tile_n) * tile_n
     c = _default_clusters(nl, n_clusters)
@@ -364,28 +410,23 @@ def shard_ivf(
     # All S k-means in ONE vmapped device program per Lloyd iteration,
     # with the stacked rows laid out over the corpus axis — each shard
     # clusters on its own device instead of S sequential programs.
-    d = vals_np.shape[1]
-    locals_np = np.zeros((s_cnt, npl, d), vals_np.dtype)
-    init = np.zeros((s_cnt, c, d), np.float32)
+    xs, _ = _local_rows(sidx, model_name, npl)
+    d = xs.shape[2]
+    init_rows = np.zeros((s_cnt, c), np.int32)
     for s in range(s_cnt):
-        lo = s * nl
-        seg = vals_np[lo:min(lo + nl, vals_np.shape[0])]
-        locals_np[s, :seg.shape[0]] = seg
         if reals[s] > 0:
-            rows = kmeans_init_rows(reals[s], c, seed + s)
-            ini = locals_np[s, rows].astype(np.float32)
-            norm = np.linalg.norm(ini, axis=1, keepdims=True)
-            init[s] = ini / np.maximum(norm, 1e-12)
-    xs = jax.device_put(
-        locals_np, NamedSharding(sidx.mesh, P(sidx.doc_axes, None, None))
-    )
+            init_rows[s] = kmeans_init_rows(reals[s], c, seed + s)
+    init = np.asarray(jax.vmap(lambda x, r: jnp.take(x, r, axis=0))(
+        xs, jnp.asarray(init_rows)), np.float32)
+    norm = np.linalg.norm(init, axis=2, keepdims=True)
+    init = np.where(np.asarray(reals)[:, None, None] > 0,
+                    init / np.maximum(norm, 1e-12), 0.0).astype(np.float32)
     cents_d, assign_d = spherical_kmeans_batched(
         xs, np.asarray(reals, np.int32), c, n_iters=n_iters, seed=seed,
         init=init,
     )
     cents_np = np.asarray(cents_d)
     assign_np = np.asarray(assign_d)
-    del xs
 
     # Per-shard slot lists: primary assignment for every real row, plus
     # (when spilling) the secondary cluster for boundary rows. Slots
@@ -400,8 +441,7 @@ def shard_ivf(
             from a_nice_rag_tpu.ops.kmeans import assign_clusters
 
             ids2, scs2 = assign_clusters(
-                jnp.asarray(locals_np[s][:real]),
-                jnp.asarray(cents_np[s]), top=2,
+                xs[s, :real], jnp.asarray(cents_np[s]), top=2,
             )
             ids2, scs2 = np.asarray(ids2), np.asarray(scs2)
             sec = np.where(ids2[:, 0] == a1, ids2[:, 1], ids2[:, 0])
@@ -416,7 +456,7 @@ def shard_ivf(
             clusters_s = np.concatenate([clusters_s, sec[keep]])
         slot_rows.append(rows_s)
         slot_clusters.append(clusters_s)
-    del locals_np
+    del xs
 
     # Uniform padded slot width so the stacked arrays shard cleanly.
     max_slots = max((len(r) for r in slot_rows), default=0)
@@ -464,60 +504,29 @@ def shard_ivf(
 def _materialize_shard_ivf(sidx, model_name, cents, perms, cstarts,
                            reals, tile_n, mct, spilled=False,
                            spill_margin=None):
-    """Gather the cluster-major permuted per-shard rows from the base
-    matrix (perm rows < 0 — the pad tail — become zero rows / zero
-    scales) and device_put everything with corpus-axis shardings."""
+    """Gather the cluster-major permuted per-shard rows from the sharded
+    matrix on the devices (perm rows < 0 — the pad tail — become zero
+    rows / zero scales) and device_put everything with corpus-axis
+    shardings."""
     import dataclasses as _dc
 
-    base = sidx.base_index
-    mat = base.dense_matrix(model_name)
-    quantized = isinstance(mat, QuantizedDense)
-    vals_np = np.asarray(mat.values if quantized else mat)
-    nl, s_cnt = sidx.n_local, sidx.n_shards
-    npl = perms.shape[1]
-    rows_v, rows_s = [], []
-    for s in range(s_cnt):
-        lo = s * nl
-        local = vals_np[lo:min(lo + nl, vals_np.shape[0])]
-        # The slot width is independent of the local row count (spill
-        # grows it, a tiny corpus shrinks it); every perm id is a real
-        # local row < npl either way, so truncation is safe.
-        if local.shape[0] < npl:
-            local = np.pad(local, ((0, npl - local.shape[0]), (0, 0)))
-        else:
-            local = local[:npl]
-        p = perms[s]
-        rows_v.append(
-            np.where((p >= 0)[:, None], local[np.clip(p, 0, npl - 1)], 0)
-        )
-        if quantized:
-            lsc = np.asarray(mat.scales)[lo:min(lo + nl, vals_np.shape[0])]
-            if lsc.shape[0] < npl:
-                lsc = np.pad(lsc, (0, npl - lsc.shape[0]))
-            else:
-                lsc = lsc[:npl]
-            rows_s.append(np.where(p >= 0, lsc[np.clip(p, 0, npl - 1)], 0.0))
-
+    # The slot width is independent of the local row count (spill grows
+    # it, a tiny corpus shrinks it); every perm id is a real local row.
     mesh = sidx.mesh
     dx = sidx.doc_axes
     sh2 = NamedSharding(mesh, P(dx, None))
     sh3 = NamedSharding(mesh, P(dx, None, None))
     sh1 = NamedSharding(mesh, P(dx))
-    if quantized:
-        rows = QuantizedDense(
-            values=jax.device_put(np.stack(rows_v), sh3),
-            scales=jax.device_put(
-                np.stack(rows_s).astype(np.float32), sh2
-            ),
-        )
-    else:
-        rows = jax.device_put(np.stack(rows_v), sh3)
+    p = jax.device_put(perms, sh2)
+    vals, scales = _local_rows(sidx, model_name, perms.shape[1], perm=p)
+    rows = (vals if scales is None
+            else QuantizedDense(values=vals, scales=scales))
     return _dc.replace(
         sidx,
         ivf_model=model_name,
         ivf_centroids=jax.device_put(cents, sh3),
         ivf_rows=rows,
-        ivf_perm=jax.device_put(perms, sh2),
+        ivf_perm=p,
         ivf_cluster_start=jax.device_put(cstarts, sh2),
         ivf_n_real=jax.device_put(reals, sh1),
         ivf_tile_n=tile_n,
@@ -578,7 +587,7 @@ def load_shard_ivf(sidx: ShardedIndex, path: str) -> ShardedIndex:
 
 
 def _gather_merge(vals, gidx, k, corpus_axis):
-    """All-gather per-shard (vals, global ids) over ICI and merge to the
+    """All-gather per-shard (vals, global ids) over one axis and merge to the
     best min(k, S * k_local) candidates."""
     all_vals = jax.lax.all_gather(vals, corpus_axis)  # [S, B, k_local]
     all_idx = jax.lax.all_gather(gidx, corpus_axis)
@@ -600,8 +609,9 @@ def _shard_offset(n_local, corpus_axis, host_axis, n_corpus):
 
 
 def _merge_over(vals, gidx, k, corpus_axis, host_axis):
-    """Exact global merge of per-shard candidates: single all-gather over
-    ICI, or hierarchical (ICI then DCN) when a host axis is present."""
+    """Exact global merge of per-shard candidates: a single all-gather,
+    or hierarchical (intra-host, then inter-host) when a host axis is
+    present."""
     if host_axis is None:
         return _gather_merge(vals, gidx, k, corpus_axis)
     return hierarchical_gather_merge(vals, gidx, k, corpus_axis, host_axis)
@@ -621,9 +631,9 @@ def _local_to_global_topk(scores, k, n_local, corpus_axis,
 def hierarchical_gather_merge(vals, gidx, k, intra_axis, inter_axis):
     """Two-level top-k merge for multi-host meshes.
 
-    Merge per-shard candidates over the fast intra-host axis (ICI)
-    FIRST — each host reduces its shards to one k-list — then merge the
-    per-host winners over the slow inter-host axis (DCN). The DCN leg
+    Merge per-shard candidates over the fast intra-host axis FIRST —
+    each host reduces its shards to one k-list — then merge the per-host
+    winners over the slow inter-host axis. The inter-host leg
     carries k entries per host instead of k per shard, cutting
     cross-host traffic by the intra-axis size while remaining exact
     (top-k merge is associative).
@@ -634,7 +644,7 @@ def hierarchical_gather_merge(vals, gidx, k, intra_axis, inter_axis):
 
 class ShardedRetriever:
     """Sharded equivalent of retrieval.FusedRetriever: every ranker,
-    the ICI merge, fusion and final top-n in one pjit program."""
+    the cross-shard merge, fusion and final top-n in one pjit program."""
 
     def __init__(
         self,
@@ -644,29 +654,31 @@ class ShardedRetriever:
         similarity_k: int = 25,
         common_sections_n: int = 15,
         budget: int = 16384,
-        dense_backend: str = "xla",
+        dense_backend: str = "auto",
         bm25_backend: str = "auto",
-        pallas_config=None,
         nprobe: Optional[int] = None,
         ivf_max_tiles: Optional[int] = None,
         ivf_route: str = "auto",
         ivf_max_coverage: float = 0.25,
+        interpret: bool = False,
     ):
-        """dense_backend="pallas" streams each shard through the fused
-        matmul+top-k kernel (ops.pallas) — use for million-doc shards
-        where materializing [B, N_local] scores is the bottleneck.
+        """dense_backend: "auto", "xla" or "stream", resolved per shard
+        by :func:`ops.streaming.choose_route`; a streaming route never
+        materializes [B, N_local] scores (for million-doc shards).
+        ``interpret=True`` runs the streaming kernel in the Pallas
+        interpreter (tests on the CPU).
         bm25_backend: "auto" uses the two-tier layout when the sharded
         index carries one (see shard_index(two_tier_common=...)),
         "sparse" forces the sort-based CSR path, "two_tier" requires the
         layout and materializes per-shard scores,
         "two_tier_streaming" additionally streams the common tier
-        through the Pallas fused top-k kernel so no [B, N_local] score
-        matrix is ever materialized (exact; for million-doc shards).
+        through the streaming top-k so no [B, N_local] score matrix is
+        ever materialized (exact; for million-doc shards).
 
         ``nprobe``: opt-in ANN for the flagship model carried by
         ``shard_ivf`` — each shard probes its own top-``nprobe``
         clusters and scans only their covering tiles through the
-        scalar-prefetch kernel; the global merge is unchanged.
+        streaming top-k's tile table; the global merge is unchanged.
         Approximate; calls with a filename filter or tombstoned docs
         fall back to the exact program (same contract as
         FusedRetriever(nprobe=...)).
@@ -677,9 +689,7 @@ class ShardedRetriever:
         ``1 - (1 - p/C_shard)^(B/dp)`` stays at or below
         ``ivf_max_coverage``; wider batches amortize the exact shard
         stream better than the batch-scaled tile table. The 0.25
-        default comes from the measured 2M crossover
-        (results/ivf_batch_crossover.csv; see FusedRetriever);
-        re-calibrate with scripts/sweep_ivf_batch_crossover.py. "always"
+        default is FusedRetriever's (not measured on the H100). "always"
         restores the unconditional probe. Decided host-side per call
         (:meth:`_route_ivf`)."""
         self.sidx = sidx
@@ -702,9 +712,9 @@ class ShardedRetriever:
         k = similarity_k
         k_local = min(k, n_local)
         n = common_sections_n
-        use_pallas = dense_backend == "pallas"
-        pallas_kwargs = pallas_config.as_kwargs() if pallas_config else {}
-        interpret = jax.default_backend() != "tpu"
+        route = choose_route(n_local, k_local, dense_backend,
+                             interpret=interpret)
+        self.route = route
         has_tt = sidx.tt_common is not None
         if bm25_backend in ("two_tier", "two_tier_streaming") and not has_tt:
             raise ValueError(
@@ -750,6 +760,15 @@ class ShardedRetriever:
             and sidx.ivf_model in self.model_names
         )
         ivf_model = sidx.ivf_model if self.use_ivf else None
+        if self.use_ivf:
+            from a_nice_rag_tpu.index.ivf import build_tile_table, ivf_fetch_k
+
+            rows_ = sidx.ivf_rows
+            npl = (rows_.values if isinstance(rows_, QuantizedDense)
+                   else rows_).shape[1]
+            k_ivf = ivf_fetch_k(k_local, sidx.ivf_spilled, npl)
+            ivf_stream = choose_route(npl, k_ivf, "stream",
+                                      interpret=interpret)
 
         def make_shard_fn(ivf_on):
           def shard_fn(dense_mats, bm25_parts, tt_parts, ivf_parts,
@@ -758,22 +777,14 @@ class ShardedRetriever:
             for name, mat, q in zip(self.model_names, dense_mats, q_embs):
                 if ivf_on and name == ivf_model:
                     # Per-shard IVF: probe THIS shard's clusters, scan
-                    # only their covering tiles. The kernel's real-row
-                    # count is dynamic (trailing tile-table slot) since
-                    # per-shard pad counts differ under shard_map.
-                    from a_nice_rag_tpu.index.ivf import build_tile_table
-                    from a_nice_rag_tpu.ops.pallas.ivf_topk import (
-                        ivf_dense_top_k,
-                        ivf_dense_top_k_int8,
-                    )
-
+                    # only their covering tiles. The real-row count is
+                    # a traced scalar since per-shard pad counts differ
+                    # under shard_map.
                     cent, cstart, perm, nrl, rows = (
                         ivf_parts[0][0], ivf_parts[1][0],
                         ivf_parts[2][0], ivf_parts[3][0],
                         jax.tree.map(lambda x: x[0], ivf_parts[4]),
                     )
-                    iq = isinstance(rows, QuantizedDense)
-                    npl = (rows.values if iq else rows).shape[0]
                     tile_n, mct = sidx.ivf_tile_n, sidx.ivf_mct
                     c = cent.shape[0]
                     mt = ivf_max_tiles or min(
@@ -783,26 +794,13 @@ class ShardedRetriever:
                         cent, cstart, q, nprobe=min(nprobe, c),
                         max_tiles=mt, tile_n=tile_n, mct=mct,
                     )
-                    table = jnp.concatenate(
-                        [table, nrl[None].astype(jnp.int32)]
+                    # A spilled shard dedups its own candidates (the
+                    # duplicates never cross shards) and cuts back to
+                    # k_local before the cross-shard merge.
+                    vals, pidx = dense_stream_top_k(
+                        rows, q, k_ivf, ivf_stream,
+                        tiles=table, tile_n=tile_n, n_valid=nrl,
                     )
-                    # Spilled shards can return a boundary doc from both
-                    # its clusters: fetch double, dedup per shard (the
-                    # duplicates never cross shards), cut back to
-                    # k_local before the ICI merge.
-                    k_ivf = 2 * k_local if sidx.ivf_spilled else k_local
-                    if iq:
-                        qv, qs = quantize_queries(q)
-                        vals, pidx = ivf_dense_top_k_int8(
-                            rows.values, rows.scales, qv, qs, table,
-                            k_ivf, tile_n=tile_n, n_real=0,
-                            interpret=interpret,
-                        )
-                    else:
-                        vals, pidx = ivf_dense_top_k(
-                            rows, q, table, k_ivf, tile_n=tile_n,
-                            n_real=0, interpret=interpret,
-                        )
                     lidx = jnp.where(
                         pidx >= 0,
                         jnp.take(perm, jnp.clip(pidx, 0, npl - 1)),
@@ -824,35 +822,9 @@ class ShardedRetriever:
                     lists.append(gidx)
                     continue
                 quantized = isinstance(mat, QuantizedDense)
-                if use_pallas and quantized:
-                    from a_nice_rag_tpu.ops.pallas import (
-                        fused_dense_top_k_int8,
-                    )
-
-                    qv, qs = quantize_queries(q)
-                    kw = {
-                        key: val for key, val in pallas_kwargs.items()
-                        if key in ("block_q", "block_n", "subtiles",
-                                   "algo", "gated")
-                    }
-                    vals, lidx = fused_dense_top_k_int8(
-                        mat.values, mat.scales, qv, qs, k_local,
-                        mask=mask, interpret=interpret, **kw,
-                    )
-                    gidx = jnp.where(
-                        jnp.isfinite(vals),
-                        lidx + _shard_offset(n_local, ca, ha, n_corpus),
-                        -1,
-                    )
-                    _, gidx = _merge_over(vals, gidx, k, ca, ha)
-                    lists.append(gidx)
-                    continue
-                if use_pallas:
-                    from a_nice_rag_tpu.ops.pallas import fused_dense_top_k
-
-                    vals, lidx = fused_dense_top_k(
-                        mat, q, k_local, mask=mask, interpret=interpret,
-                        **pallas_kwargs,
+                if route.stream:
+                    vals, lidx = dense_stream_top_k(
+                        mat, q, k_local, route, mask=mask
                     )
                     gidx = jnp.where(
                         jnp.isfinite(vals),
@@ -914,8 +886,8 @@ class ShardedRetriever:
                     indptr=indptr, doc_ids=doc_ids, impact=impact,
                     n_docs_padded=n_local,
                 )
-                # Sort-based sparse scoring: no [N_local] accumulator, no
-                # TPU scatter (which serializes); per-query cost depends
+                # Sort-based sparse scoring: no [N_local] accumulator and
+                # no scatter per query; per-query cost depends
                 # on the postings budget only. Window-slice fetch when
                 # the corpus's df skew allows (full-vocab caps usually
                 # include head terms, so this mostly stays flat).

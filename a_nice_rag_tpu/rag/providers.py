@@ -94,7 +94,7 @@ class FakeLLMClient:
             yield text[i : i + self.chunk_size]
 
 
-class LocalTpuLLMClient:
+class LocalLLMClient:
     """On-device generation client: streams deltas from the KV-cached
     decoder LM (models/decoder.py) instead of a SaaS chat API — the
     last network hop of the reference's serve path
@@ -208,7 +208,7 @@ def route_model(
     if "fake" in name or "echo" in name:
         client = clients.get("fake")
         return (client, {"temperature": 0}) if client else None
-    if ("local" in name or "tpu" in name) and "local" in clients:
+    if "local" in name and "local" in clients:
         return clients["local"], {"temperature": 0}
     if "gemini" in name and "gemini" in clients:
         return clients["gemini"], {"temperature": 0}

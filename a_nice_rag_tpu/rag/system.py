@@ -6,7 +6,7 @@ context assembly + system prompt -> substring-routed LLM streaming,
 yielding (chunk, sources_string, raw_sections, sources_data) tuples
 (contract of src/query_rag.py:263-527).
 
-Differences from the reference are TPU-architectural, not behavioral:
+Differences from the reference are architectural, not behavioral:
 retrieval runs through the array-index engine (one device program)
 instead of pandas/NumPy loops, and the index is loaded once from the
 artifact directory instead of per-model SQLite files.

@@ -2,7 +2,7 @@
 
 ``SearchEngine`` exposes the reference's per-method API (similarity
 search, BM25 search, WRRF, rerank) over the array index, batched-first.
-``FusedRetriever`` is the TPU-native fast path: one jitted function
+``FusedRetriever`` is the device fast path: one jitted function
 running every active ranker + fusion + top-n in a single XLA program.
 """
 

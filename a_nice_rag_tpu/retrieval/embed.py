@@ -10,7 +10,7 @@ small protocol so the serving path can swap between:
   (no SDK dependency; plain HTTPS via urllib),
 * ``PrecomputedEmbedder`` — offline lookup table (the reference's eval
   fixture pattern, src/retrieval_eval.py:17-25),
-* the on-TPU encoder in ``a_nice_rag_tpu.models`` (fully local path).
+* the on-device encoder in ``a_nice_rag_tpu.models`` (fully local path).
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ Two API levels:
   rerank stage with graceful fallback. Batched-first: every method takes
   a batch of queries; single-query wrappers are provided for parity.
 
-* :class:`FusedRetriever` — the TPU fast path: all active rankers,
+* :class:`FusedRetriever` — the device fast path: all active rankers,
   fusion and final top-n compiled into ONE XLA program (one device
   round-trip per query batch).
 """
@@ -27,6 +27,7 @@ import numpy as np
 
 from a_nice_rag_tpu.config import Config
 from a_nice_rag_tpu.index.array_index import ArrayIndex
+from a_nice_rag_tpu.index.ivf import ivf_fetch_k
 from a_nice_rag_tpu.ops.bm25 import (
     Bm25TwoTier,
     bm25_scores,
@@ -42,6 +43,7 @@ from a_nice_rag_tpu.ops.quantized import (
     quantize_queries,
     quantized_dense_scores,
 )
+from a_nice_rag_tpu.ops.streaming import choose_route, dense_stream_top_k
 from a_nice_rag_tpu.ops.topk import masked_top_k
 from a_nice_rag_tpu.retrieval.rerank import Reranker, apply_rerank
 from a_nice_rag_tpu.text import preprocess_text
@@ -58,8 +60,7 @@ def _ivf_coverage(batch: int, nprobe: int, n_clusters: int) -> float:
     under (approximately) uniform cluster draws: ``1 - (1 - p/C)^B``.
     Static at trace time (all three are Python ints), so the IVF-vs-
     exact routing it drives costs nothing at dispatch. Both retriever
-    layers share this model; scripts/sweep_ivf_batch_crossover.py's
-    tile_fraction column is its measured counterpart."""
+    layers share this model."""
     if n_clusters <= 0:
         return 1.0
     p = min(nprobe, n_clusters) / n_clusters
@@ -78,7 +79,7 @@ def _dense_list(emb, q, mask, k):
 @partial(jax.jit, static_argnames=("k",))
 def _dense_list_q(qd, q, mask, k):
     """Per-model ranked list over an int8-quantized matrix (queries
-    quantized on the fly; int32 MXU accumulation)."""
+    quantized on the fly; int32 accumulation)."""
     qv, qs = quantize_queries(q)
     scores = quantized_dense_scores(qd, qv, qs)
     scores = jnp.where(mask[None, :], scores, -jnp.inf)
@@ -115,29 +116,6 @@ class FusedRetriever:
     fusion weights, wrrf_k.
     """
 
-    # Above this document count the [B, N] score matrix is streamed
-    # through the Pallas kernel instead of materialized for lax.top_k.
-    PALLAS_THRESHOLD = 1 << 19
-
-    @classmethod
-    def _route_pallas(cls, dense_backend: str, n_pad: int,
-                      similarity_k: int, backend: str) -> bool:
-        """Backend routing decision, factored out for direct testing.
-
-        Any n_pad at or past the threshold auto-routes: the streaming
-        kernel zero-pads misaligned doc axes itself (build_index aligns
-        large corpora to 8192 so real indices avoid even that copy) —
-        the old `n_pad % 8192 == 0` gate silently left 8192-misaligned
-        million-doc indices on the score-materializing XLA path."""
-        if dense_backend == "pallas":
-            return True
-        return (
-            dense_backend == "auto"
-            and backend == "tpu"
-            and n_pad >= cls.PALLAS_THRESHOLD
-            and similarity_k <= 128
-        )
-
     def __init__(
         self,
         index: ArrayIndex,
@@ -147,7 +125,6 @@ class FusedRetriever:
         common_sections_n: int = 15,
         budget: int = 16384,
         dense_backend: str = "auto",
-        pallas_config=None,
         nprobe: Optional[int] = None,
         ivf_max_tiles: Optional[int] = None,
         ivf_route: str = "auto",
@@ -155,10 +132,13 @@ class FusedRetriever:
         two_tier_common="auto",
         two_tier_dtype: str = "bfloat16",
         t_max_hint: int = 16,
+        interpret: bool = False,
     ):
-        """``pallas_config``: optional ops.pallas.FusedKernelConfig
-        (e.g. from tune_fused_blocks) overriding the streaming kernel's
-        block shape for this corpus/batch signature.
+        """``dense_backend``: "auto", "xla" or "stream", resolved with
+        the corpus size by :func:`ops.streaming.choose_route` (exposed as
+        ``self.route``). A streaming route never materializes [B, N]
+        scores. ``interpret=True`` runs its Pallas kernel in the
+        interpreter (tests on the CPU).
 
         ``nprobe``: opt-in ANN — models with an attached IVF structure
         (index.ivf, see index/ivf.attach_ivf) probe only their top-p
@@ -177,28 +157,23 @@ class FusedRetriever:
         widens) while the probed-tile union grows with batch until it
         covers the corpus, so the policy is shape-aware in (B, nprobe,
         n_clusters) rather than a fixed batch cap. The coverage model
-        assumes roughly uniform cluster draws; the 0.25 default is
-        calibrated against the measured 2M x 256 crossover
-        (results/ivf_batch_crossover.csv, TPU 2026-08-20: IVF wins
-        through B=16 — analytic coverage 0.163 — and loses from B=32
-        — analytic 0.299, measured tile fraction 0.45 — so 0.25 sits
-        between the last winning and first losing batch). Re-calibrate
-        with scripts/sweep_ivf_batch_crossover.py (tile_fraction
-        column). "always" probes at every batch size (the pre-round-5
-        behavior); either way the decision is static per compiled
-        batch bucket (batch size is static under jit).
+        assumes roughly uniform cluster draws; the 0.25 default puts
+        B=16 (analytic coverage 0.163 at the 2M x 256 IVF shape) on the
+        probed route and B=32 (0.299) on the exact one. The crossover is
+        not measured on the H100. "always" probes at every batch size;
+        either way the decision is static per compiled batch bucket
+        (batch size is static under jit).
 
-        Backend semantics note: on the Pallas route a CSR-only BM25 list
+        Backend semantics note: on the streaming route a CSR-only BM25 list
         reports -1 for zero-score slots (docs with no matching term are
         not candidates), while the XLA scatter path surfaces arbitrary
         zero-score filler ids to fill k — so a query matching fewer than
         similarity_k docs can yield a shorter fused list under
-        dense_backend="pallas". Zero-score docs carry no ranking signal
+        dense_backend="stream". Zero-score docs carry no ranking signal
         either way."""
         self.index = index
         self.model_names = tuple(model_names)
         self.use_bm25 = use_bm25
-        pallas_kwargs = pallas_config.as_kwargs() if pallas_config else {}
         similarity_k = min(similarity_k, index.n_docs)
         common_sections_n = min(common_sections_n, index.n_docs_padded)
         self.similarity_k = similarity_k
@@ -212,15 +187,14 @@ class FusedRetriever:
         csr_df_cap = None
         if use_bm25 and not use_dense_bm25 and index.bm25_stats:
             csr_df_cap = int(index.bm25_stats.get("max_df", 0) or 0) or None
-        use_pallas = self._route_pallas(
-            dense_backend, n_pad, similarity_k, jax.default_backend()
-        )
-        # Two-tier BM25 by DEFAULT on skewed CSR corpora (round-3
-        # verdict next-step 6): when common terms' dfs make both sparse
-        # fetch forms unaffordable (window slices need t*max_df <=
-        # 4*budget; the flat gather silently truncates past budget),
-        # split the top-df terms into a dense impact tier streamed
-        # through the fused kernel and keep the rare CSR side window-
+        route = choose_route(n_pad, similarity_k, dense_backend,
+                             interpret=interpret)
+        streams = route.stream
+        # Two-tier BM25 by DEFAULT on skewed CSR corpora: when common
+        # terms' dfs make both sparse fetch forms unaffordable (window
+        # slices need t*max_df <= 4*budget; the flat gather silently
+        # truncates past budget), split the top-df terms into a dense
+        # impact tier taken by the streaming top-k and keep the rare CSR side window-
         # sliced — exact (tiers partition postings; scores add;
         # ops.bm25.bm25_top_k_two_tier docstring). "auto" builds the
         # smallest power-of-two common tier that makes the rare side
@@ -229,7 +203,7 @@ class FusedRetriever:
         self._two_tier = None
         self._tt_rare_cap = None
         if (
-            use_bm25 and not use_dense_bm25 and use_pallas
+            use_bm25 and not use_dense_bm25 and streams
             and two_tier_common and index.bm25 is not None
         ):
             df = np.diff(np.asarray(index.bm25.indptr))
@@ -260,12 +234,9 @@ class FusedRetriever:
                     if rmax and rmax * t_max_hint <= 4 * budget:
                         self._tt_rare_cap = rmax
         tt_rare_cap = self._tt_rare_cap
-        # Exposed so callers (bench.py, tests) can assert which backend
-        # the configuration actually routed to.
-        self.use_pallas = use_pallas
-        interpret = jax.default_backend() != "tpu"
-        if interpret:
-            pallas_kwargs = dict(pallas_kwargs, interpret=True)
+        # Exposed so callers (bench.py, tests) can assert which route the
+        # configuration actually took.
+        self.route = route
         self.nprobe = nprobe
         if ivf_route not in ("auto", "always"):
             raise ValueError(
@@ -277,6 +248,18 @@ class FusedRetriever:
             (index.ivf or {}).get(m) if nprobe else None
             for m in self.model_names
         )
+        # The probed scan streams over its tile table on every platform:
+        # the kernel where the route has one, else plain XLA.
+        ivf_ks = tuple(
+            None if iv is None
+            else ivf_fetch_k(similarity_k, iv.spilled, iv.n_real)
+            for iv in self._ivf_structs
+        )
+        ivf_routes = tuple(
+            None if kf is None
+            else choose_route(n_pad, kf, "stream", interpret=interpret)
+            for kf in ivf_ks
+        )
 
         @partial(jax.jit, static_argnames=())
         def run(dense_mats, bm25_arrays, q_embs, q_terms, mask, bm25_mask,
@@ -284,7 +267,8 @@ class FusedRetriever:
             lists = []
             if ivf_structs is None:
                 ivf_structs = (None,) * len(q_embs)
-            for mat, q, iv in zip(dense_mats, q_embs, ivf_structs):
+            for mat, q, iv, ivr, ivk in zip(dense_mats, q_embs, ivf_structs,
+                                            ivf_routes, ivf_ks):
                 probe_this_batch = iv is not None and mask is None and (
                     self.ivf_route == "always"
                     or _ivf_coverage(q.shape[0], nprobe, iv.n_clusters)
@@ -293,17 +277,13 @@ class FusedRetriever:
                 if probe_this_batch:
                     # IVF ANN route: probe nprobe clusters, scan only
                     # their covering tiles. Only when no mask is active
-                    # (the IVF kernel has no mask operand; filtered
-                    # calls trace with mask != None and take the exact
-                    # branch below) and, under ivf_route="auto", only
+                    # (filtered calls trace with mask != None and take
+                    # the exact branch below, keeping the reference's
+                    # filter semantics exact) and, under "auto", only
                     # while the expected cluster coverage keeps the
                     # probed scan cheaper than the batch-amortized
                     # exact stream.
                     from a_nice_rag_tpu.index.ivf import build_tile_table
-                    from a_nice_rag_tpu.ops.pallas.ivf_topk import (
-                        ivf_dense_top_k,
-                        ivf_dense_top_k_int8,
-                    )
 
                     mt = ivf_max_tiles or min(
                         iv.n_tiles,
@@ -314,25 +294,10 @@ class FusedRetriever:
                         nprobe=min(nprobe, iv.n_clusters), max_tiles=mt,
                         tile_n=iv.tile_n, mct=iv.max_cluster_tiles,
                     )
-                    # Spilled layouts can return a boundary doc from
-                    # both its clusters: fetch double, dedup, cut to k.
-                    k_ivf = (
-                        min(2 * similarity_k, iv.n_real)
-                        if iv.spilled else similarity_k
+                    ivals, pidx = dense_stream_top_k(
+                        iv.rows, q, ivk, ivr,
+                        tiles=table, tile_n=iv.tile_n, n_valid=iv.n_real,
                     )
-                    if iv.emb is not None:
-                        ivals, pidx = ivf_dense_top_k(
-                            iv.emb, q, table, k_ivf,
-                            tile_n=iv.tile_n, n_real=iv.n_real,
-                            interpret=interpret,
-                        )
-                    else:
-                        qv, qs = quantize_queries(q)
-                        ivals, pidx = ivf_dense_top_k_int8(
-                            iv.values, iv.scales, qv, qs, table,
-                            k_ivf, tile_n=iv.tile_n,
-                            n_real=iv.n_real, interpret=interpret,
-                        )
                     iids = jnp.where(
                         pidx >= 0,
                         jnp.take(
@@ -348,35 +313,13 @@ class FusedRetriever:
                         iids = iids[:, :similarity_k]
                     lists.append(iids)
                     continue
-                quantized = isinstance(mat, QuantizedDense)
-                if use_pallas and quantized:
-                    from a_nice_rag_tpu.ops.pallas import (
-                        fused_dense_top_k_int8,
-                    )
-
-                    qv, qs = quantize_queries(q)
-                    # The int8 kernel takes a subset of the f32 kernel's
-                    # tuning surface.
-                    kw = {
-                        key: val for key, val in pallas_kwargs.items()
-                        if key in ("block_q", "block_n", "subtiles",
-                                   "interpret", "algo", "gated")
-                    }
-                    vals, idx = fused_dense_top_k_int8(
-                        mat.values, mat.scales, qv, qs, similarity_k,
-                        mask=mask, **kw,
+                if streams:
+                    vals, idx = dense_stream_top_k(
+                        mat, q, similarity_k, route, mask=mask
                     )
                     lists.append(idx)
                     continue
-                if use_pallas:
-                    from a_nice_rag_tpu.ops.pallas import fused_dense_top_k
-
-                    vals, idx = fused_dense_top_k(
-                        mat, q, similarity_k, mask=mask, **pallas_kwargs
-                    )
-                    lists.append(idx)
-                    continue
-                if quantized:
+                if isinstance(mat, QuantizedDense):
                     qv, qs = quantize_queries(q)
                     scores = quantized_dense_scores(mat, qv, qs)
                 else:
@@ -402,19 +345,18 @@ class FusedRetriever:
                     vals, idx = masked_top_k(scores, similarity_k)
                 elif isinstance(bm25_arrays, Bm25TwoTier):
                     # Auto-selected two-tier layout: dense common tier
-                    # streamed through the fused kernel, rare CSR side
+                    # through the streaming top-k, rare CSR side
                     # window-sliced. Exact (tiers partition postings).
                     vals, idx = bm25_top_k_two_tier(
                         bm25_arrays, q_terms, similarity_k,
                         mask=bm25_mask, budget=budget,
-                        df_cap=tt_rare_cap, interpret=interpret,
+                        df_cap=tt_rare_cap, interpret=route.interpret,
                     )
-                elif use_pallas:
+                elif streams:
                     # Million-doc CSR index: sort-based sparse top-k —
-                    # the scatter scoring path would serialize and the
-                    # [B, N_pad] score matrix is the thing the Pallas
-                    # route exists to avoid. Window-slice fetch when the
-                    # corpus's df skew allows.
+                    # the [B, N_pad] score matrix is the thing the
+                    # streaming route exists to avoid. Window-slice
+                    # fetch when the corpus's df skew allows.
                     # Window slices are lossless whenever df_cap covers
                     # every term's df (it does: derived from max_df) and
                     # the op pads when the candidate set is narrower
@@ -434,12 +376,12 @@ class FusedRetriever:
                 elif csr_df_cap is not None \
                         and q_terms.shape[1] * csr_df_cap <= 4 * budget:
                     # CSR-only index (vocab x N too big for the dense
-                    # impact matrix) on the XLA route: the scatter
-                    # scoring path serializes on TPU, so use the
-                    # sort-based sparse top-k with per-term window-slice
-                    # postings fetches (lossless — the cap is the
-                    # corpus max_df). Same -1-for-zero-score semantics
-                    # as the Pallas route (documented above).
+                    # impact matrix) on the XLA route: the sort-based
+                    # sparse top-k with per-term window-slice postings
+                    # fetches instead of a scatter per query (lossless —
+                    # the cap is the corpus max_df). Same
+                    # -1-for-zero-score semantics as the streaming route
+                    # (documented above).
                     vals, idx = bm25_top_k_sparse(
                         bm25_arrays, q_terms, similarity_k,
                         mask=bm25_mask, budget=budget,
@@ -457,7 +399,7 @@ class FusedRetriever:
                 ids = lists[0][:, :common_sections_n]
                 return ids, jnp.zeros(ids.shape, jnp.float32), lists[0][None]
             all_idx = jnp.stack(lists)  # [L, B, K]
-            if use_pallas:
+            if streams:
                 # Large corpora: fuse on the id lists directly (the
                 # scatter form would allocate [B, N_pad]).
                 from a_nice_rag_tpu.ops.fusion import wrrf_top_n_sparse
@@ -476,8 +418,8 @@ class FusedRetriever:
         self._const_cache: Dict[tuple, jax.Array] = {}
 
     def _weights_device(self, weights: Dict[str, float]) -> jax.Array:
-        """Cache the tiny weights vector on device: every host->device
-        transfer costs a full round-trip on tunneled deployments."""
+        """Cache the tiny weights vector on device: one upload per
+        distinct weighting instead of one per call."""
         key = tuple(
             [weights.get(m, 1.0) for m in self.model_names]
             + ([weights.get("BM25", 1.0)] if self.use_bm25 else [])
@@ -503,11 +445,33 @@ class FusedRetriever:
         """Device-to-device fast path: inputs/outputs stay on device
         (no host sync). Returns (fused ids, fused scores, per-list ids)
         as jax arrays."""
+        args, kw = self._program_args(
+            q_embs, q_terms, weights, filename_type_filter, wrrf_k
+        )
+        return self._run(*args, **kw)
+
+    def lower(
+        self,
+        q_embs: Dict[str, jax.Array],
+        q_terms: Optional[jax.Array],
+        weights: Dict[str, float],
+        filename_type_filter: Optional[str] = None,
+        wrrf_k: float = 40.0,
+    ):
+        """The device program :meth:`retrieve_device` runs for these
+        inputs, lowered (``.compile()`` it for its memory analysis)."""
+        args, kw = self._program_args(
+            q_embs, q_terms, weights, filename_type_filter, wrrf_k
+        )
+        return self._run.lower(*args, **kw)
+
+    def _program_args(self, q_embs, q_terms, weights, filename_type_filter,
+                      wrrf_k):
         idx = self.index
         dense_mats = tuple(idx.dense_matrix(m) for m in self.model_names)
         q_tuple = tuple(jnp.asarray(q_embs[m]) for m in self.model_names)
-        # None when all-true: the streaming kernels then drop their mask
-        # operand AND its per-tile select pass entirely.
+        # None when all-true: the streaming top-k then drops its mask
+        # operand and the per-tile select.
         mask = idx.filter_mask_or_none(filename_type_filter)
         if self.use_bm25:
             version = getattr(idx, "_version", 0)
@@ -547,18 +511,9 @@ class FusedRetriever:
             terms = self._const_cache[key]
             bm25_mask = mask
             bm25_arrays = idx.bm25
-        fids, fvals, all_idx = self._run(
-            dense_mats,
-            bm25_arrays,
-            q_tuple,
-            terms,
-            mask,
-            bm25_mask,
-            self._weights_device(weights),
-            self._scalar_device(wrrf_k),
-            ivf_structs=self._ivf_structs,
-        )
-        return fids, fvals, all_idx
+        args = (dense_mats, bm25_arrays, q_tuple, terms, mask, bm25_mask,
+                self._weights_device(weights), self._scalar_device(wrrf_k))
+        return args, dict(ivf_structs=self._ivf_structs)
 
     def __call__(
         self,
@@ -667,7 +622,7 @@ class SearchEngine:
                 self.index.bm25_dense, jnp.asarray(terms), mask, k
             )
         else:
-            budget = budget or Config.TPU.bm25_postings_budget
+            budget = budget or Config.DEVICE.bm25_postings_budget
             vals, idx = _bm25_list(
                 self.index.bm25, jnp.asarray(terms), mask, k, budget
             )

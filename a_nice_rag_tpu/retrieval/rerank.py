@@ -7,7 +7,7 @@ protocol here so deployments can choose:
 
 * ``VoyageReranker`` — the same external cross-encoder over REST,
 * ``IdentityReranker`` — no-op (offline/eval),
-* the on-TPU cross-encoder in ``a_nice_rag_tpu.models`` (fully local).
+* the on-device cross-encoder in ``a_nice_rag_tpu.models`` (fully local).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Serving layer: batch scheduling, chat app, feedback.
 
 The reference serves one query at a time from a Streamlit session
-(src/app.py). For production TPU serving the framework adds a
+(src/app.py). For production serving the framework adds a
 micro-batching scheduler that coalesces concurrent queries into one
 fused device program launch (a_nice_rag_tpu.serving.scheduler), plus the
 chat-app surface (Streamlit when installed, terminal otherwise) and the

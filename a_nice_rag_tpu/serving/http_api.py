@@ -682,7 +682,7 @@ def render_chat_messages(messages, tokenizer=None) -> str:
     carries the ChatML markers as specials (a real instruct
     checkpoint), renders ChatML so the turn structure encodes onto the
     ids the weights were trained on; otherwise the plain role-prefix
-    template rag/providers.LocalTpuLLMClient uses for demo weights, so
+    template rag/providers.LocalLLMClient uses for demo weights, so
     a model served here behaves identically whether reached in-process
     or over the wire."""
     if not isinstance(messages, list) or not messages:

@@ -4,7 +4,7 @@ Concurrent callers submit single queries; the scheduler coalesces
 whatever is waiting (up to ``max_batch``, waiting at most
 ``max_wait_ms``) into ONE fused retrieval program launch, padding the
 batch to a power-of-two bucket so XLA reuses a handful of compiled
-shapes. This is the TPU-native replacement for the reference's
+shapes. This is the on-device replacement for the reference's
 one-query-at-a-time serving path: per-query dispatch overhead is
 amortized B-ways, which is what makes >10k QPS per chip reachable from
 the host side.

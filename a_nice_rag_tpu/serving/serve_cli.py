@@ -3,8 +3,8 @@
 Wires the serving stack end to end (round-2 verdict next-step #8):
 
 * index artifact (or a synthetic demo corpus) loaded once,
-* single-device ``FusedRetriever`` — optionally autotuned Pallas blocks
-  (``--autotune``) — or, with ``--shards N``, a ``ShardedRetriever``
+* single-device ``FusedRetriever`` — or, with ``--shards N``, a
+  ``ShardedRetriever``
   over an N-device corpus mesh guarded by a ``DeviceHealthMonitor``
   that reshards over survivors and swaps the retriever live,
 * a ``SchedulerPool`` micro-batching every configuration,
@@ -17,7 +17,7 @@ The reference serves one Streamlit session per process
 
 Usage:
     python -m a_nice_rag_tpu.serving.serve_cli --index artifacts/nice \
-        [--port 8800] [--autotune] [--shards 4]
+        [--port 8800] [--shards 4]
     python -m a_nice_rag_tpu.serving.serve_cli --demo
 """
 
@@ -114,7 +114,6 @@ def build_state(
     index,
     model_names,
     use_bm25: bool = True,
-    autotune: bool = False,
     shards: int = 0,
     two_tier_common: int = 0,
     scheduler_kwargs: Optional[Dict] = None,
@@ -123,7 +122,6 @@ def build_state(
     ivf_cache: Optional[str] = None,
     ivf_spill: bool = False,
     embedder=None,
-    pallas_rounded: bool = False,
     ivf_max_coverage: float = 0.25,
 ) -> ServeState:
     """``nprobe > 0`` serves the flagship model through the IVF ANN
@@ -136,10 +134,10 @@ def build_state(
     expected cluster coverage 1-(1-p/C)^B exceeds it take the exact
     stream even with nprobe set (the per-batch corpus pass amortizes;
     engine ivf_route="auto")."""
-    import jax
-
     monitor = None
     if shards > 1:
+        import jax
+
         from a_nice_rag_tpu.parallel import (
             DeviceHealthMonitor,
             make_mesh,
@@ -179,13 +177,10 @@ def build_state(
                 if ivf_cache:
                     save_shard_ivf(sidx2, ivf_cache)
             sidx = sidx2
-        bm25_backend = "auto"
 
         def make_retriever(s):
             return ShardedRetriever(
-                s, model_names, use_bm25=use_bm25,
-                bm25_backend=bm25_backend,
-                nprobe=nprobe or None,
+                s, model_names, use_bm25=use_bm25, nprobe=nprobe or None,
                 ivf_max_coverage=ivf_max_coverage,
             )
 
@@ -224,35 +219,8 @@ def build_state(
             logger.info("serve: IVF built for %s (%d clusters)",
                         model_names[0],
                         index.ivf[model_names[0]].n_clusters)
-        pallas_config = None
-        m0_mat = index.dense.get(model_names[0]) if model_names else None
-        if autotune and jax.default_backend() == "tpu" and m0_mat is not None:
-            # Autotune probes the f32/bf16 kernel; int8-quantized
-            # matrices serve with the int8 kernel's defaults.
-            # ``pallas_rounded`` additionally tunes the packed fold
-            # (~25% faster maskless; bf16-rounded tie order — see
-            # ops/pallas/autotune.ROUNDED_CANDIDATES).
-            from a_nice_rag_tpu.ops.pallas.autotune import tune_fused_blocks
-
-            # Random probe queries: an all-zero probe makes every score
-            # tie, and the tuner's id-parity guard would then reject
-            # every exact candidate for tie-order differences.
-            q_probe = jax.random.normal(
-                jax.random.PRNGKey(0), (128, m0_mat.shape[1]),
-            ).astype(m0_mat.dtype)
-            pallas_config = tune_fused_blocks(
-                m0_mat, q_probe, 25, allow_rounded=pallas_rounded
-            )
-            logger.info("serve: autotuned pallas blocks %s", pallas_config)
-        elif pallas_rounded:
-            from a_nice_rag_tpu.ops.pallas.autotune import FusedKernelConfig
-
-            pallas_config = FusedKernelConfig(128, 16384, 1, "packed")
-            logger.info("serve: packed (rounded) fold enabled: %s",
-                        pallas_config)
         retriever = FusedRetriever(
-            index, model_names, use_bm25=use_bm25,
-            pallas_config=pallas_config, nprobe=nprobe or None,
+            index, model_names, use_bm25=use_bm25, nprobe=nprobe or None,
             ivf_max_coverage=ivf_max_coverage,
         )
         state = ServeState(index, retriever, None)
@@ -500,7 +468,6 @@ def main(argv=None) -> None:
     p.add_argument("--models", default=None,
                    help="comma-separated dense models (default: all)")
     p.add_argument("--no-bm25", action="store_true")
-    p.add_argument("--autotune", action="store_true")
     p.add_argument("--shards", type=int, default=0)
     p.add_argument("--two-tier-common", type=int, default=0)
     p.add_argument("--nprobe", type=int, default=0,
@@ -582,12 +549,6 @@ def main(argv=None) -> None:
                         "caches over the first N devices "
                         "(parallel/lm.py Megatron layout; streams stay "
                         "bit-identical to single-device)")
-    p.add_argument("--pallas-rounded", action="store_true",
-                   help="serve the dense stage with the packed "
-                        "value+index fold (~25%% faster maskless; "
-                        "top-k ties resolve at bf16 resolution). With "
-                        "--autotune, adds the packed candidates to "
-                        "the tuner instead of forcing a config")
     p.add_argument("--native-port", type=int, default=None,
                    help="also serve the binary native (C++) front on "
                         "this port: length-prefixed raw-f32 frames, "
@@ -600,8 +561,7 @@ def main(argv=None) -> None:
                    choices=["f32", "bf16", "int8"],
                    help="embedding element width on the native wire: "
                         "bf16 halves the bytes per row on the socket "
-                        "AND the host->device upload (~2x served QPS "
-                        "on a transport-bound link); int8 quarters "
+                        "and the host->device upload; int8 quarters "
                         "them (per-row scale, device-side dequant); "
                         "ranking is exact f32 ordering of the "
                         "quantized query's scores")
@@ -612,7 +572,9 @@ def main(argv=None) -> None:
                         "(tokenizer_config.json) with a marker-in-vocab "
                         "fallback; chatml/plain force it either way")
     args = p.parse_args(argv)
+    from a_nice_rag_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     if args.demo:
         from a_nice_rag_tpu.index import build_index
         from a_nice_rag_tpu.testing import synth_corpus
@@ -654,11 +616,11 @@ def main(argv=None) -> None:
         raise SystemExit(f"unknown --embedder {args.embedder!r}")
     state = build_state(
         index, tuple(model_names), use_bm25=use_bm25,
-        autotune=args.autotune, shards=args.shards,
+        shards=args.shards,
         two_tier_common=args.two_tier_common,
         nprobe=args.nprobe, ivf_clusters=args.ivf_clusters,
         ivf_cache=args.ivf_cache, ivf_spill=args.ivf_spill,
-        embedder=embedder, pallas_rounded=args.pallas_rounded,
+        embedder=embedder,
         ivf_max_coverage=args.ivf_max_coverage,
     )
     weights = {m: (5.0 if m == model_names[0] else 1.0)
@@ -725,7 +687,7 @@ def build_local_llm_api(index, state, embedder, model_names,
         init_decoder,
         small_lm_config,
     )
-    from a_nice_rag_tpu.rag.providers import LocalTpuLLMClient
+    from a_nice_rag_tpu.rag.providers import LocalLLMClient
     from a_nice_rag_tpu.rag.system import RAGSystem
     from a_nice_rag_tpu.retrieval.rerank import IdentityReranker
     from a_nice_rag_tpu.serving.genserver import GenerationServer
@@ -868,7 +830,7 @@ def build_local_llm_api(index, state, embedder, model_names,
                            constraints=constraints,
                            logprob_topk=logprob_topk,
                            retain_prefixes=retain_prefixes)
-    client = LocalTpuLLMClient(lm, lm_params, server=gen,
+    client = LocalLLMClient(lm, lm_params, server=gen,
                                tokenizer=hf_tok,
                                max_prompt_tokens=max(
                                    64, gen_max_len - 256))
@@ -887,7 +849,7 @@ def build_local_llm_api(index, state, embedder, model_names,
             engine=ShardedSearchEngine(sidx, embedder=embedder,
                                        reranker=IdentityReranker()),
         )
-    return ServingAPI(rag, gen_server=gen, llm_options=["local-tpu"],
+    return ServingAPI(rag, gen_server=gen, llm_options=["local"],
                       tokenizer=hf_tok)
 
 

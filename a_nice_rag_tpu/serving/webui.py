@@ -132,7 +132,7 @@ _PAGE = """<!DOCTYPE html>
 <div id="sidebar">
   <div>
     <h1>NICE Guidelines RAG</h1>
-    <div class="sub">TPU-native retrieval over NICE clinical guidelines</div>
+    <div class="sub">On-device retrieval over NICE clinical guidelines</div>
   </div>
   <div>
     <label for="llm">LLM</label>

@@ -3,6 +3,7 @@
 from a_nice_rag_tpu.testing.golden import (  # noqa: F401
     GoldenBm25Okapi,
     golden_dense_top_k,
+    golden_top_k,
     golden_wrrf,
 )
 from a_nice_rag_tpu.testing.synth import (  # noqa: F401

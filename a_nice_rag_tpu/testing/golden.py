@@ -1,9 +1,11 @@
 """Golden reference algorithms (pure NumPy / pure Python).
 
 These replicate the exact semantics of the reference system's retrieval
-math so the TPU kernels can be parity-tested on fixtures:
+math so the device kernels can be parity-tested on fixtures:
 
-* dense top-k: np.dot + argpartition ordering (src/search_engine.py:80-92)
+* dense top-k: np.dot + argpartition ordering (src/search_engine.py:80-92);
+  :func:`golden_top_k` is the same selection with a total order (ties to
+  the lower id), which the streaming top-k reproduces exactly
 * BM25 Okapi with rank_bm25's epsilon-floored IDF, implemented from the
   published Okapi formula (the behavior behind src/search_engine.py:219)
 * weighted reciprocal-rank fusion with dict accumulation and stable sort
@@ -33,6 +35,27 @@ def golden_dense_top_k(
     else:
         idx = sims.argsort()[::-1]
     return sims[idx], idx
+
+
+def golden_top_k(
+    scores: np.ndarray, k: int, mask: np.ndarray = None
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact top-k per row of ``scores`` [B, N]: values descending, ties
+    to the lower id; (-inf, -1) where fewer than k docs qualify.
+    ``mask`` [N] (True = candidate) removes docs."""
+    scores = np.asarray(scores, np.float64)
+    if mask is not None:
+        scores = np.where(np.asarray(mask)[None, :], scores, -np.inf)
+    b, n = scores.shape
+    vals = np.full((b, k), -np.inf)
+    ids = np.full((b, k), -1, np.int64)
+    for r in range(b):
+        order = np.lexsort((np.arange(n), -scores[r]))[:k]
+        v = scores[r, order]
+        live = np.isfinite(v)
+        vals[r, : len(order)] = v
+        ids[r, : len(order)] = np.where(live, order, -1)
+    return vals, ids
 
 
 class GoldenBm25Okapi:

@@ -1,11 +1,11 @@
 """Numerical debugging and determinism controls.
 
 The reference has no sanitizers (SURVEY.md §5: only a lock on DB caches);
-the TPU-native equivalents are JAX's debug flags. ``enable_debug`` turns
-on NaN/Inf trapping (jax_debug_nans/jax_debug_infs — any kernel
-producing non-finite values raises at the offending primitive) and
-optional x64 for numerics triage; ``deterministic_mode`` pins the GPU/TPU
-deterministic-reduction flags so repeated runs bit-match.
+the JAX equivalents are its debug flags. ``enable_debug`` turns on
+NaN/Inf trapping (jax_debug_nans/jax_debug_infs — any kernel producing
+non-finite values raises at the offending primitive) and optional x64 for
+numerics triage; ``deterministic_mode`` sets XLA's GPU
+deterministic-reduction flag so repeated runs bit-match.
 """
 
 from __future__ import annotations

@@ -6,8 +6,8 @@ query embedding, Voyage for rerank, an LLM API for generation
 on device:
 
   corpus -> on-device embedder (models/embedder.py)
-         -> hybrid dense+BM25 retrieval (fused TPU program)
-         -> on-TPU cross-encoder reranker (models/reranker.py route
+         -> hybrid dense+BM25 retrieval (fused device program)
+         -> on-device cross-encoder reranker (models/reranker.py route
             via IdentityReranker here for speed)
          -> on-device decoder LM generation, streamed
             (models/decoder.py, KV-cache decode)
@@ -48,7 +48,7 @@ from a_nice_rag_tpu.models.decoder import (
 )
 from a_nice_rag_tpu.models.embedder import OnDeviceEmbedder
 from a_nice_rag_tpu.models.encoder import EncoderConfig
-from a_nice_rag_tpu.rag.providers import LocalTpuLLMClient
+from a_nice_rag_tpu.rag.providers import LocalLLMClient
 from a_nice_rag_tpu.rag.system import RAGSystem
 from a_nice_rag_tpu.retrieval.rerank import IdentityReranker
 from a_nice_rag_tpu.text.preprocess import preprocess_text
@@ -90,7 +90,7 @@ system = RAGSystem(
     indexes={InfoSource.NICE: index},
     embedder=embedder,
     reranker=IdentityReranker(),
-    llm_clients={"local": LocalTpuLLMClient(lm, lm_params,
+    llm_clients={"local": LocalLLMClient(lm, lm_params,
                                             max_new_tokens=48,
                                             max_prompt_tokens=768)},
 )
@@ -99,7 +99,7 @@ question = contents[7].split(":")[1].strip()
 print(f"\nQ: {question}\n")
 answer, sources = [], None
 for delta, sources, _, s_data in system.query_rag_stream(
-    question, "local-tpu",
+    question, "local",
     model_weights={"local-embedder": 5.0, "BM25": 1.0},
     use_hybrid_search=True,
 ):

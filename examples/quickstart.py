@@ -1,4 +1,4 @@
-"""Runnable end-to-end quickstart (no TPU or API keys required).
+"""Runnable end-to-end quickstart (no accelerator or API keys required).
 
 Builds a synthetic corpus, indexes it, runs hybrid retrieval through
 every API level (engine, fused program, sharded mesh, RAG stream, HTTP

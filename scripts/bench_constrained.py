@@ -1,5 +1,5 @@
 """Guided-decoding overhead in the continuous-batching server,
-measured host-visible on the TPU.
+measured host-visible on the device.
 
 The constrained decode program adds, per step: one [S, V] row gather
 from the stacked [NC, Sm, V] table, one compare+select over the

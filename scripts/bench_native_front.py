@@ -2,7 +2,7 @@
 
 Same headline corpus and client-batched traffic shape as bench.py's
 served stage (512-row frames, 8 concurrent clients) so the two fronts
-are directly comparable. Run on the TPU (default platform) or CPU.
+are directly comparable. Runs on the default platform.
 """
 import argparse
 import base64

@@ -1,5 +1,5 @@
 """Admission-stall (inter-token jitter) of the generation server,
-measured host-visible on the TPU.
+measured host-visible on the device.
 
 Continuous batching has a classic tail-latency problem: admitting a
 long prompt runs its whole prefill inside one tick, stalling every

@@ -1,5 +1,5 @@
 """Batched speculative decoding in the continuous-batching server,
-measured host-visible on the TPU.
+measured host-visible on the device.
 
 scripts/bench_speculative.py measures single-stream speculation; this
 measures the SERVER form (serving/genserver.py with draft_model=):

@@ -1,4 +1,4 @@
-"""Speculative decoding speedup, measured host-visible on the TPU.
+"""Speculative decoding speedup, measured host-visible on the device.
 
 Speedup requires a draft that AGREES with the target, so both models
 are fitted in-process on the same text (memorization — the acceptance
@@ -58,8 +58,7 @@ def main():
     t0 = time.perf_counter()
     # Speculation pays when the target's decode step is weight-bound
     # (big model) and the draft is ~free; a small target loses (its 4
-    # sequential draft steps cost as much as 4 target steps — measured
-    # 0.47x at 8L x 512h, see docs/BENCHMARKS.md).
+    # sequential draft steps cost as much as 4 target steps).
     # f32 params: bf16 made the wide verify forward argmax-diverge
     # from the step forward at low-confidence positions (observed at
     # 16L x 1024h); f32 keeps the streams identical and is MORE

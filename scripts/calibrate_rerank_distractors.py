@@ -1,6 +1,6 @@
 """Calibrate add_hard_distractors + the lite-tier reranker capacity.
 
-Goal (VERDICT round-4 weak #4): on the distractor-augmented synthetic
+Goal: on the distractor-augmented synthetic
 corpus the rerank benchmark must not saturate — rerank R@1 mid-range,
 rerank-2 (full) > rerank-2-lite > unreranked hybrid, mirroring the
 reference's tier separation (0.810 vs 0.779 vs 0.699).

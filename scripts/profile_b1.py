@@ -1,6 +1,6 @@
 """Stage-level device-side latency at B=1 on the reference-scale corpus.
 
-Chained-dispatch timing (N calls, one value read, /N) per CLAUDE.md.
+Each timing is N calls ended by ``block_until_ready``, divided by N.
 """
 import time
 
@@ -15,8 +15,7 @@ def timeit(fn, *args, n=50):
     t0 = time.perf_counter()
     for _ in range(n):
         out = fn(*args)
-    leaf = jax.tree_util.tree_leaves(out)[0]
-    float(np.asarray(leaf).ravel()[0])
+    jax.block_until_ready(out)
     return (time.perf_counter() - t0) / n * 1e3
 
 

@@ -16,7 +16,7 @@ responder side and validates the measuring side:
 * judge stack: the reference's FaithfulnesswithHHEM metric
   (ragas_modified/metrics/_faithfulness.py:214 — faithfulness with a
   LOCAL NLI verdict stage instead of a judge-LLM NLI round-trip),
-  backed by the on-TPU cross-encoder NLI scorer trained on this
+  backed by the on-device cross-encoder NLI scorer trained on this
   corpus (models/nli.py); statement extraction is deterministic
   sentence splitting (the statement prompt's contract on extractive
   answers is exactly sentence decomposition).
@@ -73,7 +73,7 @@ def context_sentences(messages):
 def main() -> None:
     import jax
 
-    if "--tpu" not in sys.argv:
+    if "--device" not in sys.argv:
         jax.config.update("jax_platforms", "cpu")
 
     from a_nice_rag_tpu.config import InfoSource
@@ -196,7 +196,7 @@ def main() -> None:
         for label, f, n in rows_out:
             w.writerow([
                 label,
-                "FaithfulnesswithHHEM(on-TPU NLI cross-encoder) + "
+                "FaithfulnesswithHHEM(on-device NLI cross-encoder) + "
                 "sentence-split statements",
                 n, f"{nli.holdout_auc:.3f}", f"{f:.4f}",
             ])

@@ -1,15 +1,12 @@
-"""Decode batch-scaling curve on the Qwen3-0.6B architecture
-(round-4 verdict weak #5 / next-step 6).
+"""Decode batch-scaling curve on the Qwen3-0.6B architecture.
 
-The round-4 claim: decode at B=8 sits ~3x over its weight-stream floor
-because it is OCCUPANCY/dispatch-bound, not streaming-bound
-(scripts/probe_int8_decode.py) — which predicts near-linear aggregate
-tok/s as the slot matrix widens well past 32. This sweep measures the
-curve: slots in {8, 16, 32, 64, 128}, one GenerationServer per point,
-all slots admitted in one wave, aggregate tok/s + device ms/step.
+If decode at small batch is occupancy/dispatch-bound rather than bound
+by the weight stream, aggregate tok/s grows near-linearly as the slot
+matrix widens. This sweep measures the curve: slots in {8, 16, 32, 64,
+128}, one GenerationServer per point, all slots admitted in one wave,
+aggregate tok/s + device ms/step.
 
-Writes results/decode_slot_scaling.csv. The bench gen stage's floor is
-set from this curve's best point.
+Writes results/decode_slot_scaling.csv.
 
 Usage: python scripts/sweep_decode_slots.py [n_new] [out_csv]
 """

@@ -6,13 +6,11 @@ route's accuracy price on the same §6.1-shaped corpus that the
 committed 9-config quality sweep uses: for each nprobe, the planted
 gold recall@10, the overlap@10 with the EXACT dense top-10 (the direct
 "what did approximation change" measure), and the mean scheduled tile
-fraction (the HBM-bandwidth saving driving the latency win measured in
-bench.py's ivf stage / scripts/bench_ivf.py).
+fraction (the share of the corpus a batch reads).
 
-Deterministic (seed 42 corpus, seed-0 k-means); runs on the virtual CPU
-backend by default so the committed CSV is reproducible anywhere —
-quality numbers are platform-independent (tests pin kernel parity
-between interpret and Mosaic separately).
+Deterministic (seed 42 corpus, seed-0 k-means); runs on the CPU backend
+so the committed CSV is reproducible anywhere — quality numbers do not
+depend on the platform.
 
 Writes results/ivf_recall_sweep_synthetic.csv.
 """
@@ -23,8 +21,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-if not os.environ.get("IVF_SWEEP_ON_TPU"):
-    jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_platforms", "cpu")
 
 import csv
 import functools
@@ -46,7 +43,6 @@ def main():
     from a_nice_rag_tpu.ops.dense import dense_top_k
     from a_nice_rag_tpu.testing import calibrated_quality_corpus
 
-    interpret = jax.default_backend() != "tpu"
     c = calibrated_quality_corpus(n_queries=N_QUERIES)
     idx = build_index(
         ids=c.ids, sources=c.sources, contents=c.contents,
@@ -79,7 +75,7 @@ def main():
           for lo in range(0, N_QUERIES, BATCH):
               qb = q[lo:lo + BATCH]
               _, ids, _ = ivf_search(
-                  ivf, qb, K, nprobe=nprobe, interpret=interpret
+                  ivf, qb, K, nprobe=nprobe
               )
               ids = np.asarray(ids)
               for b in range(ids.shape[0]):

@@ -1,4 +1,4 @@
-"""Dense eager-impact BM25 (MXU path) must equal the CSR kernel exactly."""
+"""Dense eager-impact BM25 (matmul path) must equal the CSR kernel exactly."""
 
 import jax.numpy as jnp
 import numpy as np

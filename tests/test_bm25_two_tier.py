@@ -324,7 +324,7 @@ def test_engine_auto_two_tier_matches_csr_route():
     # overflow the window criterion -> auto two-tier must engage.
     kw = dict(
         model_names=(model,), use_bm25=True, similarity_k=10,
-        common_sections_n=10, budget=256, dense_backend="pallas",
+        common_sections_n=10, budget=256, dense_backend="stream",
     )
     auto = FusedRetriever(idx, two_tier_common="auto", t_max_hint=8,
                           two_tier_dtype="float32", **kw)
@@ -386,7 +386,7 @@ def test_engine_auto_two_tier_skips_flat_profiles():
     model = list(c.embeddings)[0]
     r = FusedRetriever(
         idx, (model,), use_bm25=True, similarity_k=10,
-        common_sections_n=10, budget=16384, dense_backend="pallas",
+        common_sections_n=10, budget=16384, dense_backend="stream",
         two_tier_common="auto",
     )
     assert r._two_tier is None
@@ -414,7 +414,7 @@ def test_auto_two_tier_respects_tombstones():
     model = list(c.embeddings)[0]
     r = FusedRetriever(
         idx, (model,), use_bm25=True, similarity_k=10,
-        common_sections_n=10, budget=128, dense_backend="pallas",
+        common_sections_n=10, budget=128, dense_backend="stream",
         two_tier_common="auto", t_max_hint=8,
     )
     assert r._two_tier is not None

@@ -118,14 +118,14 @@ def test_generate_stream_stops_at_eos():
     assert all(t != 257 for t in toks)  # EOS is never yielded
 
 
-def test_local_tpu_llm_in_rag_stream():
+def test_local_llm_in_rag_stream():
     """End-to-end RAG with the on-device decoder as the LLM: the
     query_rag_stream 4-tuple contract streams deltas generated by the
     KV-cached LM — no SaaS anywhere (embedding is precomputed, BM25
     local, generation local)."""
     from a_nice_rag_tpu.config import InfoSource
     from a_nice_rag_tpu.index import build_index
-    from a_nice_rag_tpu.rag.providers import LocalTpuLLMClient, route_model
+    from a_nice_rag_tpu.rag.providers import LocalLLMClient, route_model
     from a_nice_rag_tpu.rag.system import RAGSystem
     from a_nice_rag_tpu.retrieval.embed import PrecomputedEmbedder
     from a_nice_rag_tpu.retrieval.rerank import IdentityReranker
@@ -137,9 +137,9 @@ def test_local_tpu_llm_in_rag_stream():
                       token_lists=c.tokens)
     cfg = small_lm_config(hidden_size=64, num_layers=1)
     model, params = init_decoder(cfg, seed=3, max_len=1200)
-    local = LocalTpuLLMClient(model, params, max_new_tokens=24,
+    local = LocalLLMClient(model, params, max_new_tokens=24,
                               max_prompt_tokens=512)
-    assert route_model("local-tpu", {"local": local}) is not None
+    assert route_model("local", {"local": local}) is not None
     table = {"question 0": c.query_embeddings["voyage-3-large"][0]}
     system = RAGSystem(
         indexes={InfoSource.NICE: idx},
@@ -149,7 +149,7 @@ def test_local_tpu_llm_in_rag_stream():
     )
     chunks, s_data = [], None
     for chunk, _, _, s_data in system.query_rag_stream(
-        "question 0", "local-tpu", use_hybrid_search=True
+        "question 0", "local", use_hybrid_search=True
     ):
         chunks.append(chunk)
     assert len(chunks) >= 1  # untrained weights still stream tokens

@@ -1,5 +1,5 @@
-"""Fully-local pipeline: no SaaS anywhere — on-TPU encoder embeds the
-corpus AND the queries, on-TPU cross-encoder reranks, fake LLM answers.
+"""Fully-local pipeline: no SaaS anywhere — on-device encoder embeds the
+corpus AND the queries, on-device cross-encoder reranks, fake LLM answers.
 This is the configuration the reference cannot run at all (it requires
 VoyageAI for both embedding and rerank)."""
 

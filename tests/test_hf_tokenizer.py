@@ -346,7 +346,7 @@ def test_supports_chatml_prefers_declared_chat_template(tmp_path):
 
 
 def test_local_client_truncation_preserves_chatml_ids(tmp_path):
-    """rag/providers.LocalTpuLLMClient must truncate long prompts at
+    """rag/providers.LocalLLMClient must truncate long prompts at
     the ID level: a decode/re-encode round-trip strips the ChatML
     special ids (HFStreamDecoder renders specials as ''), silently
     destroying the turn structure. The ids handed to the decode path
@@ -354,7 +354,7 @@ def test_local_client_truncation_preserves_chatml_ids(tmp_path):
     pytest.importorskip("tokenizers")
     from a_nice_rag_tpu.models import decoder as decoder_mod
     from a_nice_rag_tpu.models.hf_tokenizer import HFTokenizer
-    from a_nice_rag_tpu.rag.providers import LocalTpuLLMClient
+    from a_nice_rag_tpu.rag.providers import LocalLLMClient
 
     _train_marker_tok(tmp_path)
     cfg_p = tmp_path / "tokenizer_config.json"
@@ -370,7 +370,7 @@ def test_local_client_truncation_preserves_chatml_ids(tmp_path):
 
     decoder_mod.generate_stream = fake_generate_stream
     try:
-        client = LocalTpuLLMClient(None, None, tokenizer=hf,
+        client = LocalLLMClient(None, None, tokenizer=hf,
                                    max_prompt_tokens=24)
         msgs = [{"role": "user",
                  "content": "offer antibiotics for sepsis " * 40}]

@@ -409,7 +409,7 @@ def test_chat_completions_param_plumbing():
         assert seen["max_new_tokens"] == 9
         assert seen["temperature"] == 0.25
         assert seen["constraint"] == "json_object"
-        # The chat template is the LocalTpuLLMClient one.
+        # The chat template is the LocalLLMClient one.
         from a_nice_rag_tpu.models.decoder import ByteTokenizer
         from a_nice_rag_tpu.serving.http_api import render_chat_messages
 

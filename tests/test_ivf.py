@@ -581,8 +581,7 @@ def test_engine_ivf_route_auto_batches(monkeypatch):
     route is decided at trace time, so a counting wrapper on the
     tile-table builder observes it. Here C=8, nprobe=2: B=2 covers
     ~0.44 (probes at an explicit 0.5 threshold; the production
-    default is 0.25, calibrated against the measured 2M crossover —
-    results/ivf_batch_crossover.csv), B=8 covers ~0.90 (exact)."""
+    default is 0.25), B=8 covers ~0.90 (exact)."""
     import a_nice_rag_tpu.index.ivf as ivf_mod
     from a_nice_rag_tpu.index import build_index
     from a_nice_rag_tpu.index.ivf import attach_ivf

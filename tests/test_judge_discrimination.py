@@ -1,6 +1,6 @@
 """The fully-local faithfulness stack must DISCRIMINATE (round-4
 verdict weak #3): a grounded extractive responder and a corrupted one
-must separate cleanly under FaithfulnesswithHHEM backed by the on-TPU
+must separate cleanly under FaithfulnesswithHHEM backed by the on-device
 NLI cross-encoder — the reference metric being validated is
 ragas_modified/metrics/_faithfulness.py:130-210 (statement decompose +
 NLI verdicts), with the verdict stage local per _faithfulness.py:214.

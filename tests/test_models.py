@@ -1,4 +1,4 @@
-"""On-TPU models: encoder forward, reranker, contrastive training
+"""On-device models: encoder forward, reranker, contrastive training
 (single-device and dp x tp sharded on the virtual mesh)."""
 
 import jax

@@ -1,4 +1,4 @@
-"""Parity tests: dense TPU kernels vs the NumPy reference algorithm."""
+"""Parity tests: dense ops vs the NumPy reference algorithm."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -129,12 +129,13 @@ def test_sharded_pallas_backend_matches_xla(setup):
     c, idx, mesh, sidx = setup
     weights = {"voyage-3-large": 1.0}
     q = c.query_embeddings["voyage-3-large"][:8]
-    # Pallas streaming backend per shard (interpret mode on CPU). Batch
-    # and shard sizes must tile (B=8 not divisible by 128 -> pad).
+    # Streaming route per shard, its Pallas kernel interpreted on the
+    # CPU. A padded batch: the zero rows must not disturb the real ones.
     qp = np.zeros((128, q.shape[1]), np.float32)
     qp[:8] = q
     sr_p = ShardedRetriever(sidx, MODELS, use_bm25=False, similarity_k=16,
-                            common_sections_n=16, dense_backend="pallas")
+                            common_sections_n=16, dense_backend="stream",
+                            interpret=True)
     sr_x = ShardedRetriever(sidx, MODELS, use_bm25=False, similarity_k=16,
                             common_sections_n=16)
     _, ids_p = sr_p({"voyage-3-large": qp}, None, weights, None, 40.0)

@@ -87,10 +87,11 @@ def test_fused_retriever_quantized_matches_f32_on_golds():
     out = {}
     for name, idx, backend in [("f32", idx_f32, "auto"),
                                ("q_xla", idx_q, "auto"),
-                               ("q_pallas", idx_q, "pallas")]:
+                               ("q_pallas", idx_q, "stream")]:
         fr = FusedRetriever(idx, ("voyage-3-large",), use_bm25=True,
                             similarity_k=15, common_sections_n=10,
-                            dense_backend=backend)
+                            dense_backend=backend,
+                            interpret=backend == "stream")
         ids, vals, _ = fr.retrieve_device(q, terms, w)
         out[name] = np.asarray(ids)
     for name in ("q_xla", "q_pallas"):

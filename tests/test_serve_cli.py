@@ -102,7 +102,7 @@ def test_serve_cli_quantized_index(corpus_index):
                         quantize_dense=True)
     for shards in (1, 4):
         state = build_state(idx_q, ("voyage-3-large",), use_bm25=True,
-                            shards=shards, autotune=shards == 1)
+                            shards=shards)
         srv = serve_state(state, {"voyage-3-large": 5.0, "BM25": 1.0},
                           port=0, background=True)
         try:
@@ -272,7 +272,7 @@ def test_serve_cli_local_llm_surface(corpus_index):
         req = urllib.request.Request(
             f"http://127.0.0.1:{port}/v1/rag",
             data=json.dumps({
-                "query": "question 0", "llm_model": "local-tpu",
+                "query": "question 0", "llm_model": "local",
                 "use_hybrid_search": True, "use_reranker": False,
             }).encode(),
             headers={"Content-Type": "application/json"},
@@ -608,29 +608,5 @@ def test_serve_cli_batched_b64_search_bf16(corpus_index):
         bad = dict(body, dtype="f16")
         err = _search(port, bad, expect_status=400)
         assert "dtype" in err.get("error", "")
-    finally:
-        srv.shutdown()
-
-
-def test_serve_cli_pallas_rounded_flag(corpus_index):
-    """--pallas-rounded forces the packed fold config (or adds it to
-    the autotuner); serving results remain correct on CPU because the
-    packed launcher routes to interpret-safe paths in tests."""
-    c, idx = corpus_index
-    state = build_state(idx, ("voyage-3-large",), use_bm25=True,
-                        pallas_rounded=True)
-    from a_nice_rag_tpu.retrieval import FusedRetriever
-
-    assert isinstance(state.retriever, FusedRetriever)
-    srv = serve_state(state, {"voyage-3-large": 5.0, "BM25": 1.0},
-                      port=0, background=True)
-    try:
-        port = srv.server_address[1]
-        out = _search(port, {
-            "query_embedding":
-                c.query_embeddings["voyage-3-large"][0].tolist(),
-            "terms": idx.pad_term_ids(c.query_tokens, 16)[0].tolist(),
-        })
-        assert out["results"][0]["id"] == c.gold_ids[0]
     finally:
         srv.shutdown()

@@ -52,10 +52,10 @@ def setup():
 
 
 def test_dynamic_n_real_matches_static(setup):
-    """The kernel's dynamic real-row count (trailing tile-table slot,
-    n_real=0) must equal the static form."""
+    """The kernel's traced real-row count (per-shard counts differ under
+    shard_map) must equal the static form."""
     from a_nice_rag_tpu.index.ivf import build_ivf_dense, build_tile_table
-    from a_nice_rag_tpu.ops.pallas.ivf_topk import ivf_dense_top_k
+    from a_nice_rag_tpu.ops.pallas import stream_top_k
 
     _, _, x, q, _, _, _ = setup
     x480 = jnp.asarray(x[:480])  # NOT a tile multiple: 480 real of 512
@@ -65,15 +65,16 @@ def test_dynamic_n_real_matches_static(setup):
         ivf.centroids, ivf.cluster_start, jnp.asarray(q), nprobe=12,
         max_tiles=ivf.n_tiles, tile_n=128, mct=ivf.max_cluster_tiles,
     )
-    v_s, i_s = ivf_dense_top_k(
-        ivf.emb, jnp.asarray(q), table, 9, tile_n=128, n_real=480,
+    v_s, i_s = stream_top_k(
+        ivf.emb, jnp.asarray(q), 9, tiles=table, tile_n=128, n_valid=480,
         interpret=True,
     )
-    dyn = jnp.concatenate([table, jnp.asarray([480], jnp.int32)])
-    v_d, i_d = ivf_dense_top_k(
-        ivf.emb, jnp.asarray(q), dyn, 9, tile_n=128, n_real=0,
-        interpret=True,
-    )
+    v_d, i_d = jax.jit(
+        lambda nv: stream_top_k(
+            ivf.emb, jnp.asarray(q), 9, tiles=table, tile_n=128,
+            n_valid=nv, interpret=True,
+        )
+    )(jnp.int32(480))
     np.testing.assert_array_equal(np.asarray(i_s), np.asarray(i_d))
     np.testing.assert_allclose(np.asarray(v_s), np.asarray(v_d))
 
@@ -452,8 +453,7 @@ def test_sharded_ivf_batch_routing(setup):
         common_sections_n=8, nprobe=1, ivf_max_coverage=0.5,
     )
     # Narrow enough that nprobe=1 coverage is tiny: probes. (Explicit
-    # 0.5 threshold — the production default is the calibrated 0.25,
-    # results/ivf_batch_crossover.csv.)
+    # 0.5 threshold — the production default is 0.25.)
     assert _ivf_coverage(8 // dp, 1, cs) <= 0.5
     assert r._route_ivf(8, filtered=False, tombstoned=False)
     # A batch wide enough to push expected coverage past the
